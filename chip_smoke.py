@@ -6,25 +6,35 @@
 Phases (each prints one line; any failure raises and exits non-zero):
 
   1. card: name and power limit (nvidia-smi), torch / CUDA / nvcc versions
-  2. build: compile the SW kernels K1, K2 from pecaller_tpu_torch/csrc
-  3. kernel check: K1 and K2 against their plain PyTorch versions on the
-     card, bitwise, on an adversarial mix and at the main-path shapes
-     (24576 lanes x 144 x 112 for K1, 16384 lanes for K2, 125 rows),
-     with kernel and plain times
-  4. main path: an E. coli-scale genome (4.6 Mb, seed 2024) and 100k
+  2. build: compile the SW kernels K1, K2, K3 from pecaller_tpu_torch/csrc
+     (one nvcc per source, all at once)
+  3. kernel check: each kernel against its plain PyTorch version on the
+     card, bitwise, on adversarial mixes and at the main-path shapes
+     (K1 24576 lanes x 144 x 112 with 125 rows, K2 16384 lanes of the
+     same; K3 on raw bytes with lowercase and IUPAC letters, padding
+     lanes, n_rows < N, and 16384 lanes x 160 x 112), with kernel and
+     plain times and each kernel's bound
+  4. main path (v2): an E. coli-scale genome (4.6 Mb, seed 2024) and 100k
      100 bp pairs, made once under .smoke/; `pemapper --device` in
      8192-pair batches through the port's command line, against the
      host oracle (same command line without --device): .summary.txt,
-     .pileup.gz, .indel.txt.gz and both .mfile dumps byte-equal; both
-     kernels launched on that run; reads/s over the batches (median of
-     3 passes after a warm pass), fallbacks, re-walked ties, peak device
+     .pileup.gz, .indel.txt.gz and both .mfile dumps byte-equal; K1 and
+     K2 launched on that run; reads/s over the batches (median of 3
+     passes after a warm pass), fallbacks, re-walked ties, peak device
+     memory
+  5. v1 path: the fused v1 engine (exact-key seed tables, K3) on the same
+     genome and reads through the runner's map_files: .summary.txt and
+     both .mfile dumps byte-equal to the host oracle's, the pileup equal
+     up to tie-local placement (tie_local_pileup), the same (read,
+     length) multiset of insertion records, K3 launched twice per
+     batch; reads/s, the eager traceback's time, fallbacks, peak device
      memory
 
 Then a JSON line of the kernels, and last the result line
 {"ok": true, "device": {...}}.  Needs no network and starts no process
-that outlives it.  Like the port, it uses the JAX-free host modules of
-pecaller_tpu (index builder, fastq reader, host oracle) and fails if
-the run imported jax.
+that outlives it.  The script and the port import nothing of jax nor of
+the JAX package pecaller_tpu; the run fails if either entered
+sys.modules.
 """
 
 from __future__ import annotations
@@ -44,6 +54,14 @@ DATA = os.path.join(ROOT, ".smoke")
 GENOME_LEN = 4_600_000
 BATCH = 8192
 N_ROWS = 125                       # R_ROWS of 100 bp reads: 104 + 2*10 + 1
+# H100 SXM peaks used for the bounds (NVIDIA data sheet; 700 W): HBM
+# bytes/s, and int32 operations/s = 132 SMs x 64 INT32 lanes x 1.98 GHz
+HBM_BPS = 3.35e12
+INT32_OPS = 132 * 64 * 1.98e9
+# integer operations per DP cell, counted in each kernel's inner loop
+# (match test, three planes, running max, index arithmetic; K2 adds the
+# decision and tie bits of three cells per replayed cell)
+OPS_PER_CELL = {"sw_align_x": 20, "sw_tb_rows": 60, "sw_align": 20}
 
 
 def say(phase, **kw):
@@ -96,9 +114,11 @@ def build():
 # ---------------------------------------------------------------------------
 # kernel check
 
-def mk_lanes(rng, B, N, M, lo, hi):
+def mk_lanes(rng, B, N, M, lo, hi, raw=False):
     """Adversarial SW lanes: windows around mutated reads (substitutions,
-    small indels), N wildcards in reads and windows; xcodes."""
+    small indels), N wildcards in reads and windows, padding lanes.
+    xcodes, or with ``raw`` bytes that add lowercase and IUPAC
+    letters."""
     import numpy as np
     code = np.zeros(256, np.uint8)
     code[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
@@ -128,7 +148,19 @@ def mk_lanes(rng, B, N, M, lo, hi):
     refs = np.where(rng.random((B, N)) < 0.005, ord("N"), refs)
     blens[:7] = 0                          # padding lanes
     rlens[7:14] = 1
-    return code[refs], blens, code[reads], rlens
+    if not raw:
+        return code[refs], blens, code[reads], rlens
+    iupac = np.frombuffer(b"RYKMSWBDHVrykmswbdhv", np.uint8)
+
+    def spice(x):
+        x = np.where(rng.random(x.shape) < 0.05, x | 0x20, x)
+        x = np.where(rng.random(x.shape) < 0.01,
+                     iupac[rng.integers(0, len(iupac), x.shape)], x)
+        return np.where(rng.random(x.shape) < 0.005, ord("n"),
+                        x).astype(np.uint8)
+    rlens[:7] = 1
+    return spice(refs.astype(np.uint8)), blens, \
+        spice(reads.astype(np.uint8)), rlens
 
 
 def _timed(fn, reps):
@@ -155,12 +187,27 @@ def _max_abs_err(xs, ys):
     return err
 
 
+def bound_ms(name, cells, in_bytes, out_bytes):
+    """The least time the card could take: the larger of the bytes the
+    call must move over HBM and its integer operations over the int32
+    rate.  Returns (ms, "bytes" or "operations")."""
+    t_bytes = (in_bytes + out_bytes) / HBM_BPS
+    t_ops = cells * OPS_PER_CELL[name] / INT32_OPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes > t_ops else "operations")
+
+
 def kernel_check():
     import numpy as np
     import torch
-    from pecaller_tpu_torch.ops import sw2, sw_cuda
+    from pecaller_tpu_torch.ops import sw, sw2, sw_cuda
     dev = torch.device("cuda", 0)
     res = {}
+
+    def lane_bytes(*xs):
+        return sum(x.numel() * x.element_size() for x in xs)
+
+    # K1 and K2 on xcodes
     cases = [(2048, 64, 48, 17, 41, 60), (2048, 96, 80, 30, 73, 90),
              (24576, 144, 112, 90, 101, N_ROWS)]
     for ci, (B, N, M, lo, hi, nr) in enumerate(cases):
@@ -186,36 +233,166 @@ def kernel_check():
                                      f"M={M} bisulfite={bis}: K1 {e1}, "
                                      f"K2 {e2}")
             if ci == len(cases) - 1 and not bis:
+                cells1 = int((torch.clamp(bl, 0, nr).long()
+                              * rl.clamp(0, M).long()).sum())
                 res["sw_align_x"] = dict(
                     max_abs_err=e1,
                     ms=_timed(lambda: sw_cuda.sw_align_x(
                         rx, bl, dx, rl, n_rows=nr), 5),
                     plain_ms=_timed(lambda: sw2.sw_align_x(
                         rx, bl, dx, rl, n_rows=nr), 2),
-                    shape=[B, N, M, nr])
+                    shape=[B, N, M, nr], cells=cells1,
+                    bound=bound_ms("sw_align_x", cells1,
+                                   lane_bytes(rx, bl, dx, rl),
+                                   lane_bytes(*ka)))
+                alive = (tb_in[5] > 0) & (tb_in[3] > 0)
+                cells2 = int((torch.clamp(tb_in[5], 0, nr).long()
+                              * alive.long()).sum()) * M
                 res["sw_tb_rows"] = dict(
                     max_abs_err=e2,
                     ms=_timed(lambda: sw_cuda.sw_traceback_rows(
                         *tb_in, n_rows=nr), 5),
                     plain_ms=_timed(lambda: sw2.sw_traceback_rows(
                         *tb_in, n_rows=nr), 2),
-                    shape=[U, N, M, nr])
-    say("kernel_check", bitwise=True, cases=len(cases) * 2,
+                    shape=[U, N, M, nr], cells=cells2,
+                    bound=bound_ms("sw_tb_rows", cells2, lane_bytes(*tb_in),
+                                   lane_bytes(*kt)))
+
+    # K3 on raw bytes; the last case is the v1 main-path shape (both
+    # ends' slots: H_CAP = 2 x 8192 lanes, N = 160, M = 112, all rows)
+    cases3 = [(2048, 64, 48, 17, 41, 64), (2048, 64, 48, 17, 41, 50),
+              (2048, 96, 80, 30, 73, 96), (16384, 160, 112, 90, 101, 160)]
+    for ci, (B, N, M, lo, hi, nr) in enumerate(cases3):
+        for bis in (False, True):
+            refs, bl, reads, rl = (torch.from_numpy(x).to(dev)
+                                   for x in mk_lanes(
+                np.random.default_rng(500 + 10 * ci + bis), B, N, M, lo,
+                hi, raw=True))
+            k3 = sw_cuda.sw_align(refs, bl, reads, rl, bisulfite=bis,
+                                  n_rows=nr)
+            p3 = sw.sw_align_device(refs, bl, reads, rl, bisulfite=bis,
+                                    n_rows=nr)
+            torch.cuda.synchronize()
+            e3 = _max_abs_err(k3, p3)
+            if e3:
+                raise AssertionError(f"K3 != plain at B={B} N={N} M={M} "
+                                     f"n_rows={nr} bisulfite={bis}: {e3}")
+            if ci == len(cases3) - 1 and not bis:
+                cells3 = int((torch.clamp(bl, 0, nr).long()
+                              * rl.clamp(0, M).long()).sum())
+                res["sw_align"] = dict(
+                    max_abs_err=e3,
+                    ms=_timed(lambda: sw_cuda.sw_align(
+                        refs, bl, reads, rl, n_rows=nr), 5),
+                    plain_ms=_timed(lambda: sw.sw_align_device(
+                        refs, bl, reads, rl, n_rows=nr), 2),
+                    shape=[B, N, M, nr], cells=cells3,
+                    bound=bound_ms("sw_align", cells3,
+                                   lane_bytes(refs, bl, reads, rl),
+                                   lane_bytes(*k3)))
+                # the v1 traceback (plain torch, no kernel) on one end's
+                # winners: 8192 lanes
+                W = B // 2
+                tb = [x[:W].contiguous() for x in (refs, bl, reads, rl,
+                                                   k3[1], k3[2])]
+                res["sw_align"]["eager_traceback_ms"] = _timed(
+                    lambda: sw.sw_traceback_device(*tb, n_rows=nr), 2)
+    say("kernel_check", bitwise=True, cases=2 * (len(cases) + len(cases3)),
         **{k: {kk: (round(vv, 4) if isinstance(vv, float) else vv)
                for kk, vv in v.items()} for k, v in res.items()})
     return res
 
 
 # ---------------------------------------------------------------------------
-# main path
+# data: copies of tests/util.py's generators (the same RNG calls, so the
+# same bytes)
+
+BASES = b"ACGT"
+
+
+def make_genome(rng, contig_lens, names=None, n_blocks=()):
+    """Random ACGT contigs; n_blocks = [(contig, start, len), ...] N runs."""
+    import numpy as np
+    bases = np.frombuffer(BASES, dtype=np.uint8)
+    names = names or [f"chr{i+1}" for i in range(len(contig_lens))]
+    seqs = []
+    for ci, L in enumerate(contig_lens):
+        s = bases[rng.integers(0, 4, size=L)].copy()
+        for (c, st, ln) in n_blocks:
+            if c == ci:
+                s[st:st + ln] = ord("N")
+        seqs.append(s)
+    return names, seqs
+
+
+def write_fasta(path, names, seqs, width=70):
+    with open(path, "w") as f:
+        for name, seq in zip(names, seqs):
+            f.write(f">{name}\n")
+            b = seq.tobytes().decode()
+            for i in range(0, len(b), width):
+                f.write(b[i:i + width] + "\n")
+
+
+def sample_reads(rng, names, seqs, n_reads, read_len=100, err_rate=0.0,
+                 paired=False, insert_lo=150, insert_hi=400,
+                 indel_rate=0.0, max_indel=4):
+    """Reads (and mates) sampled uniformly from the contigs, FR
+    orientation flipped at random: (seq, mate or None, truth)."""
+    import numpy as np
+    from pecaller_tpu_torch.ops.encode import revcomp_bytes
+    bases = np.frombuffer(BASES, dtype=np.uint8)
+    total = np.array([len(s) for s in seqs], dtype=np.int64)
+    out = []
+    for _ in range(n_reads):
+        ci = int(rng.integers(0, len(seqs)))
+        L = total[ci]
+        ins = int(rng.integers(insert_lo, insert_hi)) if paired else read_len
+        ins = min(ins, L)
+        start = int(rng.integers(0, max(1, L - ins + 1)))
+        frag = seqs[ci][start:start + ins]
+
+        def mutate(s):
+            s = s.copy()
+            if err_rate > 0:
+                mask = rng.random(len(s)) < err_rate
+                idx = np.nonzero(mask)[0]
+                s[idx] = bases[rng.integers(0, 4, size=len(idx))]
+            if indel_rate > 0 and rng.random() < indel_rate and len(s) > 20:
+                p = int(rng.integers(10, len(s) - 10))
+                k = int(rng.integers(1, max_indel + 1))
+                if rng.random() < 0.5:
+                    s = np.concatenate([s[:p], s[p + k:]])
+                else:
+                    insseq = bases[rng.integers(0, 4, size=k)]
+                    s = np.concatenate([s[:p], insseq, s[p:]])
+            return s
+
+        r1 = mutate(frag[:read_len])
+        if paired:
+            r2 = mutate(revcomp_bytes(frag)[:read_len])
+            if rng.random() < 0.5:
+                r1, r2 = r2, r1
+            out.append((r1, r2, (ci, start, ins)))
+        else:
+            if rng.random() < 0.5:
+                r1 = revcomp_bytes(r1)
+            out.append((r1, None, (ci, start, ins)))
+    return out
+
+
+def write_fastq(path, reads, which=0):
+    with open(path, "w") as f:
+        for i, tup in enumerate(reads):
+            s = tup[which].tobytes().decode()
+            f.write(f"@read{i}\n{s}\n+\n{'I' * len(s)}\n")
+
 
 def make_data(n_pairs):
     """Genome, index and reads under .smoke/ (made once, bench.py's
     E. coli configuration)."""
     import numpy as np
-    sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from util import make_genome, sample_reads, write_fasta, write_fastq
-    from pecaller_tpu.index import build_index
+    from pecaller_tpu_torch.index import build_index
     tag = os.path.join(DATA, f"ready_{n_pairs}")
     if os.path.exists(tag):
         return
@@ -265,13 +442,60 @@ def _argv(d, n_pairs, device):
     return argv + (["--device"] if device else [])
 
 
-def main_path(n_pairs):
-    import numpy as np
+def _batches(n_pairs):
+    from pecaller_tpu_torch.formats.fastq import FastqBatcher
+    return list(FastqBatcher(os.path.join(DATA, "r1.fastq"),
+                             os.path.join(DATA, "r2.fastq"),
+                             batch_size=BATCH, max_reads=n_pairs).batches())
+
+
+def _rates(eng, batches, dev):
+    """Reads/s of passes over the batches (3 in flight): the median of 3
+    after a warm pass, or the warm pass alone when it takes over 30 s."""
     import torch
-    from pecaller_tpu.formats.fastq import FastqBatcher
-    from pecaller_tpu.index.nbr import load_nbr_index
-    from pecaller_tpu.formats.index_files import load_index
+
+    host_s = {"enqueue": 0.0, "resolve": 0.0}
+
+    def one_pass():
+        t = time.time()
+        pend, reads = [], 0
+        host_s.update(enqueue=0.0, resolve=0.0)
+
+        def resolve():
+            t1 = time.time()
+            eng.resolve(pend.pop(0))
+            host_s["resolve"] += time.time() - t1
+        for s1, l1, s2, l2, nos in batches:
+            t1 = time.time()
+            pend.append(eng.map_batch_async(s1, l1, s2, l2, read_nos=nos))
+            host_s["enqueue"] += time.time() - t1
+            reads += 2 * len(l1)
+            if len(pend) >= 3:
+                resolve()
+        while pend:
+            resolve()
+        torch.cuda.synchronize(dev)
+        return reads / (time.time() - t), time.time() - t
+
+    warm, secs = one_pass()
+    if secs > 30:
+        rates, how = [warm], "one pass (over 30 s)"
+    else:
+        rates = sorted(one_pass()[0] for _ in range(3))
+        how = "median of 3 after a warm pass"
+    # host seconds per batch of the last pass: enqueue of the eager step
+    # (map_batch_async) and resolve (waiting on the copy included)
+    per_batch = {k: v / len(batches) for k, v in host_s.items()}
+    return rates, how, per_batch
+
+
+def main_path(n_pairs):
+    """Phase 4: the v2 path.  Returns K1/K2 launches and the host
+    oracle's engine (its pileup and insertion records serve phase 5)."""
+    import torch
     from pecaller_tpu_torch import cli
+    from pecaller_tpu_torch.formats.index_files import load_index
+    from pecaller_tpu_torch.index.nbr import load_nbr_index
     from pecaller_tpu_torch.mapper.runner import run_mapper
     from pecaller_tpu_torch.ops import sw_cuda
 
@@ -291,19 +515,18 @@ def main_path(n_pairs):
     torch.cuda.reset_peak_memory_stats(dev)
     sw_cuda.reset_launches()
     t0 = time.time()
-    eng = run_mapper(cli.parse_pemapper(_argv(dev_dir, n_pairs, True)),
-                     device=dev)
+    eng = run_mapper(cli.parse_pemapper(_argv(dev_dir, n_pairs, True)))
     torch.cuda.synchronize(dev)
     t_dev = time.time() - t0
     launches = dict(sw_cuda.LAUNCHES)
-    if not all(launches.values()):
+    if not (launches["sw_align_x"] and launches["sw_tb_rows"]):
         raise AssertionError(f"a kernel of the path never ran: {launches}")
     n_fallback, n_tiefix = eng.n_fallback, eng.n_tiefix
 
+    # the host oracle: the same command line without --device
     host_dir = _run_dir("host")
     t0 = time.time()
-    if cli.main(["pemapper", *_argv(host_dir, n_pairs, False)]) != 0:
-        raise AssertionError("host oracle run failed")
+    host = run_mapper(cli.parse_pemapper(_argv(host_dir, n_pairs, False)))
     t_host = time.time() - t0
     got, want = _artifacts(dev_dir), _artifacts(host_dir)
     diff = [k for k in want if got[k] != want[k]]
@@ -313,39 +536,202 @@ def main_path(n_pairs):
     if want["out.summary.txt"].count(b"\n") < 5 or not want[".pileup.gz"]:
         raise AssertionError("host oracle wrote empty artifacts")
 
-    # throughput over the batches: one warm pass, median of 3
-    batches = list(FastqBatcher(os.path.join(DATA, "r1.fastq"),
-                                os.path.join(DATA, "r2.fastq"),
-                                batch_size=BATCH,
-                                max_reads=n_pairs).batches())
-
-    def one_pass():
-        t = time.time()
-        pend, reads = [], 0
-        for s1, l1, s2, l2, nos in batches:
-            pend.append(eng.map_batch_async(s1, l1, s2, l2, read_nos=nos))
-            reads += 2 * len(l1)
-            if len(pend) >= 3:
-                eng.resolve(pend.pop(0))
-        while pend:
-            eng.resolve(pend.pop(0))
-        torch.cuda.synchronize(dev)
-        return reads / (time.time() - t)
-
-    one_pass()
-    rates = sorted(one_pass() for _ in range(3))
+    rates, how, per_batch = _rates(eng, _batches(n_pairs), dev)
     say("main_path", pairs=n_pairs, batch=BATCH, byte_equal=sorted(want),
-        launches=launches, reads_per_s=round(rates[1], 1),
-        reads_per_s_passes=[round(r, 1) for r in rates],
+        launches=launches, reads_per_s=rates[len(rates) // 2],
+        reads_per_s_passes=rates, passes=how, host_s_per_batch=per_batch,
         n_fallback=n_fallback, n_tiefix=n_tiefix,
         max_memory_allocated=torch.cuda.max_memory_allocated(dev),
         seconds=dict(data=round(t_data, 1), nbr_index=round(t_nbr, 1),
                      device_run=round(t_dev, 1), host_run=round(t_host, 1)))
+    del eng
+    torch.cuda.empty_cache()
+    return launches, host
+
+
+def tie_local_pileup(p_ref, p_dev, max_width=8, max_frac=0.01):
+    """The rule of tests/util.py assert_tie_local_pileup (copied): the
+    device and oracle pileups may differ only by exact-score-tie shifts,
+    short clusters of rows whose per-column sums cancel.  One extension
+    for the v1 engine, which has no tie re-walk: a cluster may also trade
+    counts between the four base columns when its base total, deletions
+    and insertions cancel.  That is a tie-rotated insertion: the int DP
+    and the f64 oracle insert different read bases at the same score,
+    so different read bases land on the reference rows.  Returns (rows
+    that differ, the rotated clusters as (first row, column sums))."""
+    import numpy as np
+    d = p_dev.astype(np.int64) - p_ref.astype(np.int64)
+    if d[:, :4].sum() != 0 or (d[:, 4:].sum(axis=0) != 0).any():
+        raise AssertionError("global totals differ")
+    nz = np.nonzero(d.any(axis=1))[0]
+    nnz = max(int((p_ref.sum(1) > 0).sum()), 1)
+    if len(nz) > max(4, int(nnz * max_frac)):
+        raise AssertionError(f"{len(nz)} differing rows of {nnz}")
+    rotated = []
+    if len(nz) == 0:
+        return 0, rotated
+    splits = np.nonzero(np.diff(nz) > max_width)[0]
+    for cl in np.split(nz, splits + 1):
+        width = int(cl[-1] - cl[0]) + 1
+        if width > max_width:
+            raise AssertionError(f"diff cluster at {cl[0]} spans {width} "
+                                 "rows")
+        col = d[cl[0]:cl[-1] + 1].sum(axis=0)
+        if (col == 0).all():
+            continue
+        if col[:4].sum() != 0 or (col[4:] != 0).any():
+            raise AssertionError(f"cluster at {cl[0]} does not cancel: "
+                                 f"{col.tolist()}")
+        rotated.append((int(cl[0]), col.tolist()))
+    return len(nz), rotated
+
+
+def v1_path(n_pairs, host):
+    """Phase 5: the fused v1 engine on phase 4's genome and reads,
+    against phase 4's host oracle artifacts.  Returns K3's launches."""
+    import numpy as np
+    import torch
+    from pecaller_tpu_torch import cli
+    from pecaller_tpu_torch.formats.index_files import load_index
+    from pecaller_tpu_torch.formats.sdx import read_sdx, read_seq
+    from pecaller_tpu_torch.mapper.device_pipeline import FusedMapperEngine
+    from pecaller_tpu_torch.mapper.runner import map_files
+    from pecaller_tpu_torch.ops import sw_cuda
+
+    v1_dir = _run_dir("v1")
+    cfg = cli.parse_pemapper(_argv(v1_dir, n_pairs, True))
+    dev = torch.device("cuda", 0)
+    sdx = read_sdx(cfg.sdx_path)
+    genome = read_seq(os.path.join(DATA, "g.seq"), sdx.genome_size)
+    index = load_index(os.path.join(DATA, "g"))
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    eng = FusedMapperEngine(sdx, genome, index, device=dev,
+                            bisulfite=cfg.bisulfite, min_align=cfg.min_align,
+                            min_dist=cfg.min_dist, max_dist=cfg.max_dist,
+                            paired=cfg.paired, nthreads=cfg.nthreads)
+    t_build = time.time() - t0
+    batches = _batches(n_pairs)
+    sw_cuda.reset_launches()
+    t0 = time.time()
+    map_files(cfg, eng, sdx, genome)
+    torch.cuda.synchronize(dev)
+    t_run = time.time() - t0
+    launches = dict(sw_cuda.LAUNCHES)
+    if launches["sw_align"] != 2 * len(batches):
+        raise AssertionError(f"K3 launched {launches['sw_align']} times "
+                             f"for {len(batches)} batches")
+    n_fallback = eng.n_fallback
+
+    got, want = _artifacts(v1_dir), _artifacts(os.path.join(DATA, "host"))
+    diff = [k for k in ("out.summary.txt", "r1.fastq.mfile",
+                        "r2.fastq.mfile") if got[k] != want[k]]
+    if diff:
+        raise AssertionError(f"v1 artifacts differ from the host "
+                             f"oracle's: {diff}")
+    n_tie_rows, rotated = tie_local_pileup(host.final_pileup(),
+                                           eng.final_pileup())
+    ins_h = sorted((k, len(s)) for k, _, s in host.ins_records)
+    ins_v = sorted((k, len(s)) for k, _, s in eng.ins_records)
+    if ins_h != ins_v:
+        raise AssertionError("v1 insertion records differ from the host "
+                             "oracle's (read, length) multiset")
+    pileup_equal = got[".pileup.gz"] == want[".pileup.gz"]
+
+    rates, how, per_batch = _rates(eng, batches, dev)
+    say("v1_path", pairs=n_pairs, batch=BATCH,
+        byte_equal=["out.summary.txt", "r1.fastq.mfile", "r2.fastq.mfile"]
+        + ([".pileup.gz"] if pileup_equal else []),
+        pileup_rows_tie_shifted=n_tie_rows,
+        tie_rotated_insertion_clusters=rotated, insertions=len(ins_v),
+        launches=launches, batches=len(batches),
+        reads_per_s=rates[len(rates) // 2], reads_per_s_passes=rates,
+        passes=how, host_s_per_batch=per_batch, n_fallback=n_fallback,
+        max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+        seconds=dict(engine_build=round(t_build, 1),
+                     device_run=round(t_run, 1)))
+    del eng
+    torch.cuda.empty_cache()
     return launches
 
 
-def _jax_modules():
-    return {m for m in sys.modules if m == "jax" or m.startswith("jax.")}
+def profile_v1(n_pairs, n_batches=2):
+    """--profile: torch.profiler over v1 batches after a warm one, no
+    comparisons.  Prints host and device ms per batch of each step stage
+    (profiler ranges "v1.*"), device kernels per batch, and the ops with
+    the most device and host time; the tables go to
+    chiprun_out/profile_v1.txt."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from pecaller_tpu_torch.formats.index_files import load_index
+    from pecaller_tpu_torch.formats.sdx import read_sdx, read_seq
+    from pecaller_tpu_torch.mapper.device_pipeline import FusedMapperEngine
+    make_data(n_pairs)
+    dev = torch.device("cuda", 0)
+    sdx = read_sdx(os.path.join(DATA, "g.sdx"))
+    eng = FusedMapperEngine(
+        sdx, read_seq(os.path.join(DATA, "g.seq"), sdx.genome_size),
+        load_index(os.path.join(DATA, "g")), device=dev, paired=True,
+        min_align=0.9, min_dist=0, max_dist=500,
+        nthreads=os.cpu_count() or 2)
+    batches = _batches(n_pairs)[:n_batches + 1]
+
+    def run(bs):
+        for s1, l1, s2, l2, nos in bs:
+            eng.resolve(eng.map_batch_async(s1, l1, s2, l2, read_nos=nos))
+        torch.cuda.synchronize(dev)
+
+    run(batches[:1])
+    t0 = time.time()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(batches[1:])
+    wall = time.time() - t0
+    ka = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "device_time_total",
+                       getattr(e, "cuda_time_total", 0))
+
+    def self_dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+    nb = len(batches) - 1
+    # a range "v1.*" appears twice: as the host range (host time, and the
+    # device time of the kernels launched in it) and as the card's
+    # annotation (its span on the card's timeline, idle gaps included)
+    stages = {}
+    for e in ka:
+        if e.key.startswith("v1."):
+            s = stages.setdefault(e.key, {})
+            if e.cpu_time_total > 0:
+                s.update(host_ms=e.cpu_time_total / 1e3 / nb,
+                         kernel_ms=dev_us(e) / 1e3 / nb, calls=e.count // nb)
+            else:
+                s.update(device_span_ms=self_dev_us(e) / 1e3 / nb)
+    def on_card(e):             # kernels and copies, not the annotations
+        return (str(getattr(e, "device_type", "")).endswith("CUDA")
+                and not e.key.startswith("v1."))
+    ka_ops = [e for e in ka if not e.key.startswith("v1.")]
+    kernels = [e for e in prof.events() if on_card(e)]
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "profile_v1.txt"), "w") as f:
+        f.write(ka.table(sort_by="self_cuda_time_total", row_limit=40))
+        f.write(ka.table(sort_by="self_cpu_time_total", row_limit=40))
+    say("profile_v1", batches=nb, wall_ms_per_batch=1e3 * wall / nb,
+        device_ms_per_batch=sum(self_dev_us(e) for e in ka if on_card(e))
+        / 1e3 / nb,
+        device_events_per_batch=len(kernels) / nb, stages=stages,
+        top_device=[(e.key, self_dev_us(e) / 1e3 / nb) for e in sorted(
+            ka_ops, key=self_dev_us, reverse=True)[:12]],
+        top_host=[(e.key, e.self_cpu_time_total / 1e3 / nb) for e in sorted(
+            ka, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]])
+
+
+def _foreign_modules():
+    return {m for m in sys.modules
+            if any(m == p or m.startswith(p + ".")
+                   for p in ("jax", "pecaller_tpu"))}
 
 
 REPLACES = {
@@ -353,28 +739,39 @@ REPLACES = {
                    "pecaller_tpu/ops/sw_pallas2.py:139"),
     "sw_tb_rows": ("pecaller_tpu_torch/csrc/sw_tb_rows.cu",
                    "pecaller_tpu/ops/sw_pallas2.py:325"),
+    "sw_align": ("pecaller_tpu_torch/csrc/sw_align.cu",
+                 "pecaller_tpu/ops/sw_pallas.py:118"),
 }
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--pairs", type=int, default=100_000,
-                    help="read pairs of the main-path run")
+                    help="read pairs of the main-path runs")
+    ap.add_argument("--profile", action="store_true",
+                    help="profile v1 batches instead of the phases 3-5")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
-    jax_before = _jax_modules()
+    before = _foreign_modules()
     import torch
     card_info()
     build()
+    if args.profile:
+        profile_v1(args.pairs)
+        return
     kres = kernel_check()
-    launches = main_path(args.pairs)
-    if _jax_modules() - jax_before:
-        raise AssertionError("the run imported jax")
+    launches, host = main_path(args.pairs)
+    launches.update(sw_align=v1_path(args.pairs, host)["sw_align"])
+    entered = sorted(_foreign_modules() - before)
+    if entered:
+        raise AssertionError(f"the run imported {entered[:5]}")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": REPLACES[k][0],
          "replaces": REPLACES[k][1], "launches": launches[k],
          "max_abs_err": kres[k]["max_abs_err"], "ms": kres[k]["ms"],
-         "plain_ms": kres[k]["plain_ms"]} for k in REPLACES]}), flush=True)
+         "plain_ms": kres[k]["plain_ms"], "bound_ms": kres[k]["bound"][0],
+         "bound_by": kres[k]["bound"][1], "library_ms": None}
+        for k in REPLACES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

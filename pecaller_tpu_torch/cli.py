@@ -1,26 +1,46 @@
 """Command line of the PyTorch port.
 
-``python -m pecaller_tpu_torch pemapper <pemapper.c argv> [--device]
-[--batch-size N]``: the argv of the reference ``pemapper`` (as
-``python -m pecaller_tpu pemapper`` takes it).  ``--device`` maps on the
-first CUDA device, or on the CPU where there is none; without it the
-exact host engine maps.  ``--batch-size`` sets the read pairs per batch
-(default 20000).
+``python -m pecaller_tpu_torch pemapper <pemapper.c argv>
+[--device[=DEV]] [--batch-size N]``: the argv of the reference
+``pemapper`` (as ``python -m pecaller_tpu pemapper`` takes it).
+``--device`` maps with the fused device engine on the first CUDA device
+and fails where there is none; ``--device=cpu`` runs that engine on the
+CPU (as the tests do); without it the exact host engine maps.
+``--batch-size`` sets the read pairs per batch (default 20000).
 """
 
 from __future__ import annotations
 
 import sys
 
-from pecaller_tpu.cli import _read_list, _yes
-
 from .mapper.runner import MapperConfig, run_mapper
+
+
+def _yes(s: str) -> bool:
+    return "y" in s.lower()
+
+
+def _read_list(path):
+    names, out_names = [], []
+    with open(path) as f:
+        for line in f:
+            tok = line.split()
+            if not tok or len(tok[0]) <= 2:
+                break
+            names.append(tok[0])
+            out_names.append(tok[1] if len(tok) > 1 else "")
+    return names, out_names
 
 
 def parse_pemapper(argv) -> MapperConfig:
     argv = list(argv)
-    device = "--device" in argv
-    argv = [a for a in argv if a != "--device"]
+    dev_args = [a for a in argv
+                if a == "--device" or a.startswith("--device=")]
+    device = bool(dev_args)
+    torch_device = None
+    if dev_args:                # "--device=cpu" names the torch device
+        torch_device = dev_args[-1].partition("=")[2] or None
+    argv = [a for a in argv if a not in dev_args]
     batch_size = MapperConfig.batch_size
     if "--batch-size" in argv:
         k = argv.index("--batch-size")
@@ -50,7 +70,7 @@ def parse_pemapper(argv) -> MapperConfig:
                         min_dist=min_dist, bisulfite=bis,
                         min_align=min_align, max_reads=max_reads,
                         nthreads=max(1, threads - 1), device=device,
-                        batch_size=batch_size)
+                        batch_size=batch_size, torch_device=torch_device)
 
 
 def cmd_pemapper(argv) -> int:
@@ -65,6 +85,6 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if not argv or argv[0] not in COMMANDS:
         print("usage: python -m pecaller_tpu_torch pemapper <args> "
-              "[--device] [--batch-size N]", file=sys.stderr)
+              "[--device[=DEV]] [--batch-size N]", file=sys.stderr)
         return 2
     return COMMANDS[argv[0]](argv[1:])

@@ -31,18 +31,18 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from pecaller_tpu.index.nbr import NBR_HI_BITS, NbrIndex
-from pecaller_tpu.mapper.engine import (
+from ..device import resolve_device
+from ..index.nbr import NBR_HI_BITS, NbrIndex
+from ..native.build import ptr as _ptr
+from ..ops import sw2
+from ..ops.encode import IDEPTH
+from ..ops.sw_cuda import sw_align_x, sw_traceback_rows
+from .engine import (
     MISALIGN_SLOP, NEITHER_MAP, NON_MATE, NON_MIS, NON_NO, UNIQUE_MATE,
     UNIQUE_MIS, UNIQUE_SINGLE, UNIQUE_SLIP, MapperEngine)
-from pecaller_tpu.mapper.seeds import revcomp_batch, segment_offsets
-from pecaller_tpu.native.build import ptr as _ptr
-from pecaller_tpu.ops.encode import IDEPTH
-
-from ..ops import sw2
-from ..ops.sw_cuda import sw_align_x, sw_traceback_rows
-from .host_prep import (_bucket_b, _pad_to, exact_score_threshold_amb,
-                        pack_genome)
+from .host_prep import (_bucket_b, _pad_to, contig_pad,
+                        exact_score_threshold_amb, pack_genome)
+from .seeds import revcomp_batch, segment_offsets
 
 PAD_SCORE = -36
 POS_PAD = 2 ** 30
@@ -88,8 +88,8 @@ def _u32(x):
 
 
 def _as_i32(a: np.ndarray) -> torch.Tensor:
-    """Host uint32/int32 array -> int32 tensor of the same bits
-    (zero-copy view of the host memory)."""
+    """Host integer array -> int32 tensor of its low 32 bits (a
+    zero-copy view of a uint32/int32 array's memory)."""
     a = np.ascontiguousarray(a)
     if a.dtype == np.uint32:
         a = a.view(np.int32)
@@ -97,6 +97,34 @@ def _as_i32(a: np.ndarray) -> torch.Tensor:
         # read-only (memory-mapped) index arrays: never written
         warnings.simplefilter("ignore", UserWarning)
         return torch.from_numpy(a.astype(np.int32, copy=False))
+
+
+def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device`` (on a card: a pinned,
+    asynchronous copy)."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def fetch_async(out: torch.Tensor, device: torch.device) -> dict:
+    """Start the copy of a batch's result to the host: on a card one
+    pinned copy and an event, waited on by ``fetched``."""
+    if device.type != "cuda":
+        return {"host": out}
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return {"host": host, "event": event}
+
+
+def fetched(h: dict) -> np.ndarray:
+    """The host copy that ``fetch_async`` started, once it has landed."""
+    if "event" in h:
+        h["event"].synchronize()
+    return h.pop("host").numpy()
 
 
 # --------------------------------------------------------------------------
@@ -161,9 +189,7 @@ def carry_state(nbr: NbrIndex, cw: np.ndarray, mw: np.ndarray,
     identical state."""
     device = torch.device(device)
     ist = np.asarray(istarts).astype(np.int32)
-    n_pad = max(n_contigs + 1, 70) + 1
-    st_pad = np.full(n_pad, 2 ** 31 - 1, np.int32)
-    st_pad[:len(ist)] = ist
+    st_pad = contig_pad(ist, n_contigs)
     return DeviceState(
         NbrDeviceIndex(nbr, device),
         torch.from_numpy(np.asarray(cw, np.uint32).astype(np.int64)).to(
@@ -346,7 +372,126 @@ def _ceil_log2(n: int) -> int:
     return max(1, int(np.ceil(np.log2(n))))
 
 
-class FusedStep2:
+class DecideLayer:
+    """The pair and single-end decision of a fused step
+    (pemapper.c:1313-1536, :1084-1174), for a step with attributes
+    ``B``, ``dev``, ``min_dist`` and ``max_dist``.  Both fused steps
+    share it; the v1 step passes no DP-input hash and ignores the tie
+    flags."""
+
+    def _ar(self, n, dtype=I64):
+        return torch.arange(n, dtype=dtype, device=self.dev)
+
+    @staticmethod
+    def _top_tie(is_top, cnt, h):
+        """>= 2 candidates at the exact top score with different DP
+        inputs (hash inequality): the reference's strict f64 `>` scan is
+        rounding-dependent there, so the unit goes to the host."""
+        hmin = torch.where(is_top, h, MASK32).amin(dim=1)
+        hmax = torch.where(is_top, h, 0).amax(dim=1)
+        return (cnt >= 2) & (hmin != hmax)
+
+    def decide_single(self, smax, valid, thr, h):
+        elig = valid & (smax >= thr[:, None])
+        top = torch.where(elig, smax, -(1 << 30)).amax(dim=1)
+        is_top = elig & (smax == top[:, None])
+        cnt = is_top.sum(1)
+        bsm = first_argmax(is_top)
+        code = torch.where(cnt == 0, NEITHER_MAP,
+                           torch.where(cnt == 1, UNIQUE_SINGLE, NON_NO))
+        use = (cnt == 1).to(I32)
+        best = torch.where(cnt == 1, bsm, 0)
+        return code.to(I32), best, use, self._top_tie(is_top, cnt, h)
+
+    def decide_pair(self, e1, e2, thr1, thr2):
+        B = self.B
+        smax1, pos1, v1 = e1["smax"], e1["pos"], e1["valid"]
+        smax2, pos2, v2 = e2["smax"], e2["pos"], e2["valid"]
+        or1, or2 = e1["orient"], e2["orient"]
+        h1, h2 = e1["hash"], e2["hash"]
+        K = smax1.shape[1]
+        NEGBIG = -(1 << 30)
+        idx = self._ar(K, I32)[None, :]
+        el1 = v1 & (smax1 >= thr1[:, None])
+        el2 = v2 & (smax2 >= thr2[:, None])
+
+        # uint32 modular |distance|
+        du = (pos1.to(I64)[:, :, None] - pos2.to(I64)[:, None, :]) & MASK32
+        dist = torch.minimum(du, (-du) & MASK32)
+        pm = (el1[:, :, None] & el2[:, None, :] & (dist >= self.min_dist)
+              & (dist <= self.max_dist) & (or1[:, :, None] != or2[:, None, :]))
+        ssum = smax1[:, :, None] + smax2[:, None, :]
+        tot_best = torch.where(pm, ssum, NEGBIG).amax(dim=(1, 2))
+        maxm = pm & (ssum == tot_best[:, None, None])
+        perfect = maxm.sum((1, 2))
+        first_lin = first_argmax(maxm.reshape(B, -1))
+        sm1 = torch.div(first_lin, K, rounding_mode="floor")
+        sm2 = first_lin % K
+        lin = self._ar(K * K, I32).reshape(K, K)
+        share = (maxm & (lin[None] != first_lin[:, None, None]) &
+                 ((self._ar(K, I32)[None, :, None] == sm1[:, None, None]) |
+                  (self._ar(K, I32)[None, None, :] == sm2[:, None, None])))
+        slip = 1 + share.sum((1, 2))
+
+        max1 = torch.where(v1, smax1, NEGBIG).amax(1)
+        best1 = first_argmax(v1 & (smax1 == max1[:, None]))
+        m1_c = ((best1 != 0).to(I64) +
+                (v1 & (idx > best1[:, None]) &
+                 (smax1 == max1[:, None])).sum(1))
+        max2 = torch.where(v2, smax2, NEGBIG).amax(1)
+        best2 = first_argmax(v2 & (smax2 == max2[:, None]))
+        s2ref = torch.gather(smax2, 1, best1.to(I64)[:, None])[:, 0]
+        m2_c = ((best2 != 0).to(I64) +
+                (v2 & (idx > best2[:, None]) &
+                 (smax2 >= s2ref[:, None])).sum(1))
+        elig_b1 = max1 >= thr1
+        elig_b2 = max2 >= thr2
+        u1 = elig_b1 & (m1_c < 2)
+        u2 = elig_b2 & (m2_c < 2)
+        code_np = torch.where(u1 & u2, UNIQUE_MIS,
+                              torch.where(u1 | u2, UNIQUE_SINGLE, NON_MIS))
+
+        has_perf = perfect > 0
+        use_both = (perfect == 1) | (slip == perfect)
+        code = torch.where(has_perf,
+                           torch.where(perfect == 1, UNIQUE_MATE,
+                                       torch.where(slip == perfect,
+                                                   UNIQUE_SLIP, NON_MATE)),
+                           code_np)
+        b1 = torch.where(has_perf, sm1, best1)
+        b2 = torch.where(has_perf, sm2, best2)
+        use1 = torch.where(has_perf, use_both, u1).to(I32)
+        use2 = torch.where(has_perf, use_both, u2).to(I32)
+
+        # decide-level tie flags on the no-perfect best1/best2 scans
+        top1 = v1 & (smax1 == max1[:, None])
+        top2 = v2 & (smax2 == max2[:, None])
+        t_np1 = self._top_tie(top1, top1.sum(1), h1)
+        t_np2 = self._top_tie(top2, top2.sum(1), h2)
+        tie_np = (~has_perf) & ((t_np1 & elig_b1) | (t_np2 & elig_b2))
+
+        c_s1, b_s1, u_s1, t_s1 = self.decide_single(smax1, v1, thr1, h1)
+        c_s2, b_s2, u_s2, t_s2 = self.decide_single(smax2, v2, thr2, h2)
+        n1z = ~v1.any(1)
+        n2z = ~v2.any(1)
+        both = (~n1z) & (~n2z)
+        only1 = (~n1z) & n2z
+        only2 = n1z & (~n2z)
+        code = torch.where(both, code,
+                           torch.where(only1, c_s1,
+                                       torch.where(only2, c_s2,
+                                                   NEITHER_MAP)))
+        best1 = torch.where(both, b1, torch.where(only1, b_s1, 0))
+        best2 = torch.where(both, b2, torch.where(only2, b_s2, 0))
+        use1 = torch.where(both, use1, torch.where(only1, u_s1, 0))
+        use2 = torch.where(both, use2, torch.where(only2, u_s2, 0))
+        tie_fb = torch.where(both, tie_np,
+                             torch.where(only1, t_s1, only2 & t_s2))
+        return (code.to(I32), best1.to(I32), best2.to(I32), use1.to(I32),
+                use2.to(I32), tie_fb)
+
+
+class FusedStep2(DecideLayer):
     """One batch of the fused mapping program for fixed shapes.
 
     ``step(state, seqs_u, lens, offsets, n_segs, mm0, thr, fb_pad)``
@@ -386,9 +531,6 @@ class FusedStep2:
                 pw[t, c] = p
                 p = (p * mlt) & MASK32
         self.pw = torch.from_numpy(pw).to(self.dev)
-
-    def _ar(self, n, dtype=I64):
-        return torch.arange(n, dtype=dtype, device=self.dev)
 
     def pairize(self, fb_u):
         """A fallback on either end routes the whole pair to the host."""
@@ -568,116 +710,6 @@ class FusedStep2:
         fallback = ((seg_over.any(dim=2).any(dim=1) | heavy_over
                      | (n_keep > CAP)) & (skip == 0))
         return hits, hits_off, orient, tot, fallback
-
-    # ---- decision layer (pemapper.c:1313-1536, :1084-1174) ---------------
-
-    @staticmethod
-    def _top_tie(is_top, cnt, h):
-        """>= 2 candidates at the exact top score with different DP
-        inputs (hash inequality): the reference's strict f64 `>` scan is
-        rounding-dependent there, so the unit goes to the host."""
-        hmin = torch.where(is_top, h, MASK32).amin(dim=1)
-        hmax = torch.where(is_top, h, 0).amax(dim=1)
-        return (cnt >= 2) & (hmin != hmax)
-
-    def decide_single(self, smax, valid, thr, h):
-        elig = valid & (smax >= thr[:, None])
-        top = torch.where(elig, smax, -(1 << 30)).amax(dim=1)
-        is_top = elig & (smax == top[:, None])
-        cnt = is_top.sum(1)
-        bsm = first_argmax(is_top)
-        code = torch.where(cnt == 0, NEITHER_MAP,
-                           torch.where(cnt == 1, UNIQUE_SINGLE, NON_NO))
-        use = (cnt == 1).to(I32)
-        best = torch.where(cnt == 1, bsm, 0)
-        return code.to(I32), best, use, self._top_tie(is_top, cnt, h)
-
-    def decide_pair(self, e1, e2, thr1, thr2):
-        B = self.B
-        smax1, pos1, v1 = e1["smax"], e1["pos"], e1["valid"]
-        smax2, pos2, v2 = e2["smax"], e2["pos"], e2["valid"]
-        or1, or2 = e1["orient"], e2["orient"]
-        h1, h2 = e1["hash"], e2["hash"]
-        K = smax1.shape[1]
-        NEGBIG = -(1 << 30)
-        idx = self._ar(K, I32)[None, :]
-        el1 = v1 & (smax1 >= thr1[:, None])
-        el2 = v2 & (smax2 >= thr2[:, None])
-
-        # uint32 modular |distance|
-        du = (pos1.to(I64)[:, :, None] - pos2.to(I64)[:, None, :]) & MASK32
-        dist = torch.minimum(du, (-du) & MASK32)
-        pm = (el1[:, :, None] & el2[:, None, :] & (dist >= self.min_dist)
-              & (dist <= self.max_dist) & (or1[:, :, None] != or2[:, None, :]))
-        ssum = smax1[:, :, None] + smax2[:, None, :]
-        tot_best = torch.where(pm, ssum, NEGBIG).amax(dim=(1, 2))
-        maxm = pm & (ssum == tot_best[:, None, None])
-        perfect = maxm.sum((1, 2))
-        first_lin = first_argmax(maxm.reshape(B, -1))
-        sm1 = torch.div(first_lin, K, rounding_mode="floor")
-        sm2 = first_lin % K
-        lin = self._ar(K * K, I32).reshape(K, K)
-        share = (maxm & (lin[None] != first_lin[:, None, None]) &
-                 ((self._ar(K, I32)[None, :, None] == sm1[:, None, None]) |
-                  (self._ar(K, I32)[None, None, :] == sm2[:, None, None])))
-        slip = 1 + share.sum((1, 2))
-
-        max1 = torch.where(v1, smax1, NEGBIG).amax(1)
-        best1 = first_argmax(v1 & (smax1 == max1[:, None]))
-        m1_c = ((best1 != 0).to(I64) +
-                (v1 & (idx > best1[:, None]) &
-                 (smax1 == max1[:, None])).sum(1))
-        max2 = torch.where(v2, smax2, NEGBIG).amax(1)
-        best2 = first_argmax(v2 & (smax2 == max2[:, None]))
-        s2ref = torch.gather(smax2, 1, best1.to(I64)[:, None])[:, 0]
-        m2_c = ((best2 != 0).to(I64) +
-                (v2 & (idx > best2[:, None]) &
-                 (smax2 >= s2ref[:, None])).sum(1))
-        elig_b1 = max1 >= thr1
-        elig_b2 = max2 >= thr2
-        u1 = elig_b1 & (m1_c < 2)
-        u2 = elig_b2 & (m2_c < 2)
-        code_np = torch.where(u1 & u2, UNIQUE_MIS,
-                              torch.where(u1 | u2, UNIQUE_SINGLE, NON_MIS))
-
-        has_perf = perfect > 0
-        use_both = (perfect == 1) | (slip == perfect)
-        code = torch.where(has_perf,
-                           torch.where(perfect == 1, UNIQUE_MATE,
-                                       torch.where(slip == perfect,
-                                                   UNIQUE_SLIP, NON_MATE)),
-                           code_np)
-        b1 = torch.where(has_perf, sm1, best1)
-        b2 = torch.where(has_perf, sm2, best2)
-        use1 = torch.where(has_perf, use_both, u1).to(I32)
-        use2 = torch.where(has_perf, use_both, u2).to(I32)
-
-        # decide-level tie flags on the no-perfect best1/best2 scans
-        top1 = v1 & (smax1 == max1[:, None])
-        top2 = v2 & (smax2 == max2[:, None])
-        t_np1 = self._top_tie(top1, top1.sum(1), h1)
-        t_np2 = self._top_tie(top2, top2.sum(1), h2)
-        tie_np = (~has_perf) & ((t_np1 & elig_b1) | (t_np2 & elig_b2))
-
-        c_s1, b_s1, u_s1, t_s1 = self.decide_single(smax1, v1, thr1, h1)
-        c_s2, b_s2, u_s2, t_s2 = self.decide_single(smax2, v2, thr2, h2)
-        n1z = ~v1.any(1)
-        n2z = ~v2.any(1)
-        both = (~n1z) & (~n2z)
-        only1 = (~n1z) & n2z
-        only2 = n1z & (~n2z)
-        code = torch.where(both, code,
-                           torch.where(only1, c_s1,
-                                       torch.where(only2, c_s2,
-                                                   NEITHER_MAP)))
-        best1 = torch.where(both, b1, torch.where(only1, b_s1, 0))
-        best2 = torch.where(both, b2, torch.where(only2, b_s2, 0))
-        use1 = torch.where(both, use1, torch.where(only1, u_s1, 0))
-        use2 = torch.where(both, use2, torch.where(only2, u_s2, 0))
-        tie_fb = torch.where(both, tie_np,
-                             torch.where(only1, t_s1, only2 & t_s2))
-        return (code.to(I32), best1.to(I32), best2.to(I32), use1.to(I32),
-                use2.to(I32), tie_fb)
 
     # ---- the step --------------------------------------------------------
 
@@ -904,19 +936,20 @@ class FusedMapperEngine2(MapperEngine):
 
     The exact host engine ``MapperEngine`` supplies the oracle pieces:
     the remap of fallback pairs, the native f64 re-walk of tied windows
-    and the output statistics.  ``device`` is explicit; a CPU device
-    runs the plain versions of the kernels."""
+    and the output statistics.  ``device`` defaults to the first CUDA
+    device; a CPU device, named by the caller, runs the plain versions
+    of the kernels."""
 
-    def __init__(self, *args, nbr: NbrIndex | None = None, device="cpu",
+    def __init__(self, *args, nbr: NbrIndex | None = None, device="cuda",
                  ins_cap: int = INS_CAP, tie_cap: int = TIE_CAP, **kwargs):
         super().__init__(*args, **kwargs)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         gs = self.sdx.genome_size
         if gs >= 2 ** 30:
             raise ValueError("fused device engine requires genome < 2^30 "
                              "bases")
         if nbr is None:
-            from pecaller_tpu.index.nbr import build_nbr_index
+            from ..index.nbr import build_nbr_index
             nbr = build_nbr_index(self.index)     # ValueError past its cap
         if nbr.hash_tag is None:
             nbr.with_cuckoo()
@@ -967,12 +1000,6 @@ class FusedMapperEngine2(MapperEngine):
                 return b
         return 20
 
-    def _to_device(self, x: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(x))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
-
     def map_batch_async(self, seqs1, lens1, seqs2=None, lens2=None,
                         read_nos=None):
         lens1 = np.asarray(lens1, np.int64)
@@ -990,24 +1017,13 @@ class FusedMapperEngine2(MapperEngine):
         if self.paired:
             a2 = self._prep_end2(seqs2, lens2, B, M, s_max)
             ins = [np.concatenate([x, y], axis=0) for x, y in zip(ins, a2)]
-        out = step(self.state, *(self._to_device(x) for x in ins))
-        h = dict(seqs1=seqs1, lens1=lens1, seqs2=seqs2, lens2=lens2,
-                 read_nos=read_nos, n=seqs1.shape[0], B=B)
-        if self.device.type == "cuda":
-            # one pinned device->host copy per batch, waited on in resolve
-            h["host"] = torch.empty(out.shape, dtype=out.dtype,
-                                    pin_memory=True)
-            h["host"].copy_(out, non_blocking=True)
-            h["event"] = torch.cuda.Event()
-            h["event"].record(torch.cuda.current_stream(self.device))
-        else:
-            h["host"] = out
-        return h
+        out = step(self.state, *(to_device(x, self.device) for x in ins))
+        return dict(seqs1=seqs1, lens1=lens1, seqs2=seqs2, lens2=lens2,
+                    read_nos=read_nos, n=seqs1.shape[0], B=B,
+                    **fetch_async(out, self.device))
 
     def resolve(self, h):
-        if "event" in h:
-            h["event"].synchronize()
-        out = h.pop("host").numpy()
+        out = fetched(h)
         n = h["n"]
         B = h["B"]
         packed = out[:B]

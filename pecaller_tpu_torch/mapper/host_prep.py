@@ -3,7 +3,8 @@
 JAX-free homes of helpers that live in JAX-importing modules of the
 reference package: ``_pad_to``, ``_bucket_b`` and
 ``exact_score_threshold[_amb]`` (``pecaller_tpu/mapper/device_pipeline.py``)
-and ``pack_genome`` with its tables (``pecaller_tpu/mapper/device_map2.py``).
+and ``pack_genome`` with its tables (``pecaller_tpu/mapper/device_map2.py``),
+and the padded contig starts both fused engines search.
 """
 
 from __future__ import annotations
@@ -24,6 +25,14 @@ def _bucket_b(n: int, lo: int = 512) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def contig_pad(istarts: np.ndarray, n_contigs: int) -> np.ndarray:
+    """Contig starts padded with INT32_MAX to the length the device
+    contig search probes (it starts at index 7)."""
+    st_pad = np.full(max(n_contigs + 1, 70) + 1, 2 ** 31 - 1, np.int32)
+    st_pad[:len(istarts)] = istarts
+    return st_pad
 
 
 def exact_score_threshold(lens: np.ndarray, min_align: float) -> np.ndarray:

@@ -1,12 +1,15 @@
-"""Wrappers of the hand-written CUDA kernels K1 (sw_align_x) and K2
-(sw_tb_rows); counterpart of ``pecaller_tpu/ops/sw_pallas2.py``.
+"""Wrappers of the hand-written CUDA kernels K1 (sw_align_x), K2
+(sw_tb_rows) and K3 (sw_align); counterparts of
+``pecaller_tpu/ops/sw_pallas2.py`` (K1, K2) and
+``pecaller_tpu/ops/sw_pallas.py`` (K3).
 
-A CPU tensor goes to the plain PyTorch version in ``ops/sw2.py``.  A
-CUDA tensor goes to the kernel, or the wrapper raises: there is no
-fallback.  The kernels are compiled with ``nvcc`` for ``sm_90a`` at
-first use into ``build/kernels/`` at the root of the checkout (rebuilt
-when a source changes) and loaded with ctypes.  Each wrapper counts its
-launches in ``LAUNCHES``.
+A CPU tensor goes to the plain PyTorch version (``ops/sw2.py`` for K1
+and K2, ``ops/sw.py`` for K3).  A CUDA tensor goes to the kernel, or
+the wrapper raises: there is no fallback.  The kernels are compiled
+with ``nvcc`` for ``sm_90a`` at first use into ``build/kernels/`` at
+the root of the checkout (one ``nvcc -c`` per source, all started
+together, then one link; rebuilt when a source changes) and loaded with
+ctypes.  Each wrapper counts its launches in ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -20,19 +23,19 @@ import time
 
 import torch
 
-from . import sw2
+from . import sw, sw2
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
-_SOURCES = ("sw_align_x.cu", "sw_tb_rows.cu")
+_SOURCES = ("sw_align_x.cu", "sw_tb_rows.cu", "sw_align.cu")
 _HEADER = "sw_kernels.h"
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_CSRC)), "build",
                          "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SMEM_LIMIT = 227 * 1024
 
-LAUNCHES = {"sw_align_x": 0, "sw_tb_rows": 0}
+LAUNCHES = {"sw_align_x": 0, "sw_tb_rows": 0, "sw_align": 0}
 BUILD_INFO = {}          # nvcc seconds and ptxas report of the last build
 _LIB = None
 
@@ -51,7 +54,8 @@ def _nvcc() -> str:
 
 
 def build_kernels() -> str:
-    """Compile the kernels (once per source hash); returns the .so path."""
+    """Compile the kernels (once per source hash); returns the .so path.
+    Each source compiles in its own nvcc process, all at once."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in (_HEADER, *_SOURCES):
         with open(os.path.join(_CSRC, name), "rb") as f:
@@ -60,17 +64,32 @@ def build_kernels() -> str:
     if os.path.exists(lib):
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.build{os.getpid()}"
+    tag = f"{lib}.build{os.getpid()}"
     t0 = time.time()
-    res = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-I", _CSRC, "-o", tmp,
-         *(os.path.join(_CSRC, s) for s in _SOURCES)],
-        capture_output=True, text=True)
+    nvcc = _nvcc()
+    objs = [f"{tag}.{i}.o" for i in range(len(_SOURCES))]
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-I", _CSRC, "-c", "-o", o,
+         os.path.join(_CSRC, src)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for src, o in zip(_SOURCES, objs)]
+    report = []
+    for src, p in zip(_SOURCES, procs):
+        out = p.communicate()[0]
+        report.append(out)
+        if p.returncode != 0:
+            for q in procs:
+                q.kill()
+                q.wait()
+            raise RuntimeError(f"nvcc failed on {src}:\n{out}")
+    res = subprocess.run([nvcc, "-shared", "-o", tag, *objs],
+                         capture_output=True, text=True)
+    for o in objs:
+        os.remove(o)
     if res.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + res.stdout + res.stderr)
-    os.replace(tmp, lib)
-    BUILD_INFO.update(seconds=time.time() - t0,
-                      ptxas=res.stdout + res.stderr)
+        raise RuntimeError("nvcc link failed:\n" + res.stdout + res.stderr)
+    os.replace(tag, lib)
+    BUILD_INFO.update(seconds=time.time() - t0, ptxas="".join(report))
     return lib
 
 
@@ -86,6 +105,10 @@ def load_kernels() -> ctypes.CDLL:
     lib.sw_align_x_launch.restype = ci
     lib.sw_tb_rows_launch.argtypes = [vp] * 11 + [ci] * 5 + [vp]
     lib.sw_tb_rows_launch.restype = ci
+    lib.sw_align_smem_bytes.argtypes = [ci, ci]
+    lib.sw_align_smem_bytes.restype = ci
+    lib.sw_align_launch.argtypes = [vp] * 7 + [ci] * 5 + [vp]
+    lib.sw_align_launch.restype = ci
     _LIB = lib
     return lib
 
@@ -102,7 +125,8 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_inputs(refs, blens, reads, rlens, n_rows, extra=()):
+def _check_inputs(refs, blens, reads, rlens, n_rows, extra=(),
+                  smem_fn="sw_smem_bytes"):
     dev = refs.device
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
@@ -117,7 +141,7 @@ def _check_inputs(refs, blens, reads, rlens, n_rows, extra=()):
     if not 0 <= n_rows <= N:
         raise ValueError(f"n_rows {n_rows} outside [0, {N}]")
     lib = load_kernels()
-    if lib.sw_smem_bytes(M, 32) > SMEM_LIMIT:
+    if getattr(lib, smem_fn)(M, 32) > SMEM_LIMIT:
         raise ValueError(f"read width {M} needs more shared memory than "
                          "a block has")
     return lib, B, N, M
@@ -181,3 +205,27 @@ def sw_traceback_rows(refs, blens, reads, rlens, bt_k, bt_i,
         raise RuntimeError(f"sw_tb_rows launch failed: cudaError {rc}")
     LAUNCHES["sw_tb_rows"] += 1
     return ev_kind, ins_j, ins_len, tie
+
+
+def sw_align(refs, blens, reads, rlens, bisulfite: bool = False,
+             n_rows: int | None = None):
+    """K3.  Same contract as sw.sw_align_device: raw bytes in, (score,
+    k, i) int32, each (B,)."""
+    n_rows = refs.shape[1] if n_rows is None else n_rows
+    if refs.device.type == "cpu":
+        return sw.sw_align_device(refs, blens, reads, rlens,
+                                  bisulfite=bisulfite, n_rows=n_rows)
+    lib, B, N, M = _check_inputs(refs, blens, reads, rlens, n_rows,
+                                 smem_fn="sw_align_smem_bytes")
+    dev = refs.device
+    score = torch.empty(B, dtype=torch.int32, device=dev)
+    bk = torch.empty(B, dtype=torch.int32, device=dev)
+    bi = torch.empty(B, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.sw_align_launch(
+            _p(refs), _p(blens), _p(reads), _p(rlens), _p(score), _p(bk),
+            _p(bi), B, N, M, n_rows, int(bool(bisulfite)), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"sw_align launch failed: cudaError {rc}")
+    LAUNCHES["sw_align"] += 1
+    return score, bk, bi

@@ -1,6 +1,8 @@
 """The port's run_mapper(device=True) and its command line against the
-host path (byte-equal artifacts), the runner's refusals, and the
-threshold-boundary inputs of tests/test_fused2.py.
+host path (byte-equal artifacts), its engine choice (v2 on the nbr
+index, v1 where both the nbr and the quartered-key index refuse) against
+the JAX runner's, the runner's refusals, and the threshold-boundary
+inputs of tests/test_fused2.py.
 
 Tolerance: byte equality of .summary.txt, the decompressed .pileup.gz
 and .indel.txt.gz, and both .mfile dumps."""
@@ -73,7 +75,7 @@ def test_run_mapper_and_cli_match_host(data, tmp_path):
     subprocess.run(
         [sys.executable, "-m", "pecaller_tpu_torch", "pemapper", base, sdx,
          "p", r1, r2, "500", "0", "n", "0.9", "3", "2000000000",
-         "--device", "--batch-size", "600"],
+         "--device=cpu", "--batch-size", "600"],
         cwd=REPO, env=env, check=True, capture_output=True, timeout=600)
     outs["cli"] = _artifacts(base, r1, r2)
     assert outs["host"][".summary.txt"].count(b"\n") > 5
@@ -91,12 +93,13 @@ def test_parse_pemapper_single_end():
         (False, True, 0.85, 3, 100, True, 8192, ["r.fq"])
 
 
+def _refuse(*a, **k):
+    raise ValueError("index would hold too many positions")
+
+
 def test_runner_refuses_what_is_not_ported(data, monkeypatch):
     from pecaller_tpu_torch.mapper import runner
-
-    def refuse(*a, **k):
-        raise ValueError("nbr index would hold too many positions")
-    monkeypatch.setattr(runner, "load_nbr_index", refuse)
+    monkeypatch.setattr(runner, "load_nbr_index", _refuse)
     cfg = MapperConfig(out_base=str(data / "x"),
                        sdx_path=str(data / "g.sdx"), paired=True,
                        files1=[], files2=[], device=True)
@@ -105,6 +108,81 @@ def test_runner_refuses_what_is_not_ported(data, monkeypatch):
     cfg.mesh_shards = 4
     with pytest.raises(NotImplementedError, match="item 8"):
         run_mapper(cfg, device=CPU)
+
+
+def test_quarter_refuses_agrees_with_jax_builder(data):
+    from pecaller_tpu.index.quarter import build_quarter_index
+    from pecaller_tpu_torch.formats.index_files import SeedIndex, load_index
+    from pecaller_tpu_torch.index.quarter import quarter_refuses
+    index = load_index(str(data / "g"))
+    counts = np.diff(np.asarray(index.starts, np.int64))
+    ab = counts >= 100
+    per_q = int(counts[~ab].sum()) + int(ab.sum())
+    far = SeedIndex(index.keys, index.starts,
+                    np.where(np.arange(len(index.positions)) == 7, 1 << 30,
+                             index.positions).astype(np.uint32))
+    cases = [(index, m) for m in (100, 4 * per_q - 1, 4 * per_q,
+                                  6_000_000_000)] + [(far, 6_000_000_000)]
+    got = []
+    for idx, m in cases:
+        try:
+            build_quarter_index(idx, max_positions=m)
+            refused = False
+        except ValueError:
+            refused = True
+        assert quarter_refuses(idx, max_positions=m) == refused, m
+        got.append(refused)
+    assert got == [True, True, False, False, True]
+
+
+def test_run_mapper_v1_route_matches_jax(data, tmp_path, monkeypatch):
+    """Both packages' runners with the nbr index and the quartered-key
+    index refusing: both map with their fused v1 engine."""
+    import pecaller_tpu.index.nbr as jnbr
+    import pecaller_tpu.index.quarter as jquarter
+    from pecaller_tpu.mapper.runner import MapperConfig as JaxConfig
+    from pecaller_tpu.mapper.runner import run_mapper as jax_run_mapper
+    from pecaller_tpu_torch.mapper import runner
+    from pecaller_tpu_torch.mapper.device_pipeline import FusedMapperEngine
+    monkeypatch.setattr(jnbr, "load_nbr_index", _refuse)
+    monkeypatch.setattr(jquarter, "load_quarter_index", _refuse)
+    monkeypatch.setattr(runner, "load_nbr_index", _refuse)
+    monkeypatch.setattr(runner, "quarter_refuses", lambda index: True)
+    outs = {}
+    for how, cfg_cls, run in (("jax", JaxConfig, jax_run_mapper),
+                              ("port", MapperConfig, run_mapper)):
+        r1, r2 = _reads_copy(data, tmp_path / how)
+        base = str(tmp_path / how / "out")
+        cfg = cfg_cls(out_base=base, sdx_path=str(data / "g.sdx"),
+                      paired=True, files1=[r1], files2=[r2], max_dist=500,
+                      min_dist=0, batch_size=600, device=True, nthreads=2)
+        eng = run(cfg, device=CPU) if how == "port" else run(cfg)
+        assert type(eng).__name__ == "FusedMapperEngine"
+        outs[how] = _artifacts(base, r1, r2)
+    assert isinstance(eng, FusedMapperEngine)
+    assert outs["jax"][".summary.txt"].count(b"\n") > 5
+    for k, v in outs["jax"].items():
+        assert outs["port"][k] == v, k
+
+
+def test_device_path_needs_cuda_unless_asked(data, tmp_path):
+    """Without a CUDA device, run_mapper and --device raise; the caller
+    names the CPU to run the device path there."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device exists here")
+    from pecaller_tpu_torch.cli import parse_pemapper
+    r1, r2 = _reads_copy(data, tmp_path / "nocuda")
+    argv = [str(tmp_path / "nocuda" / "out"), str(data / "g.sdx"), "p", r1,
+            r2, "500", "0", "n", "0.9", "3", "100", "--device"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_mapper(parse_pemapper(argv))
+    cfg = parse_pemapper(argv[:-1] + ["--device=cpu"])
+    assert (cfg.device, cfg.torch_device) == (True, "cpu")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    res = subprocess.run(
+        [sys.executable, "-m", "pecaller_tpu_torch", "pemapper", *argv],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0 and "no CUDA device" in res.stderr
 
 
 @pytest.fixture(scope="module")

@@ -44,6 +44,22 @@ def make_fused2_data(d):
     return d
 
 
+def make_fused_data(d):
+    """Write g.* and r1/r2.fastq of tests/test_fused.py (seed 42) into d."""
+    rng = np.random.default_rng(42)
+    names, seqs = make_genome(rng, [30000, 20000], n_blocks=[(0, 5000, 30)])
+    fa = str(d / "g.fa")
+    write_fasta(fa, names, seqs)
+    from pecaller_tpu.index import build_index
+    build_index(fa, str(d / "g"), write_idx=False)
+    reads = sample_reads(rng, names, seqs, 900, read_len=100, err_rate=0.01,
+                         paired=True, insert_lo=150, insert_hi=450,
+                         indel_rate=0.15, max_indel=4)
+    write_fastq(str(d / "r1.fastq"), reads, which=0)
+    write_fastq(str(d / "r2.fastq"), reads, which=1)
+    return d
+
+
 def make_bisulfite_data(d):
     """The bisulfite configuration of tests/test_fused2.py (seed 77)."""
     rng = np.random.default_rng(77)
