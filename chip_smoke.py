@@ -2,18 +2,23 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--pairs N]
+    python3 chip_smoke.py --kernels     # phases 1-3 only, about a minute
 
 Phases (each prints one line; any failure raises and exits non-zero):
 
   1. card: name and power limit (nvidia-smi), torch / CUDA / nvcc versions
   2. build: compile the SW kernels K1, K2, K3 from pecaller_tpu_torch/csrc
-     (one nvcc per source, all at once)
+     (one nvcc per source, all at once); ptxas registers and spills of
+     each instance, and with --kernels K1's SASS counts (sass_k1)
   3. kernel check: each kernel against its plain PyTorch version on the
      card, bitwise, on adversarial mixes and at the main-path shapes
      (K1 24576 lanes x 144 x 112 with 125 rows, K2 16384 lanes of the
      same; K3 on raw bytes with lowercase and IUPAC letters, padding
      lanes, n_rows < N, and 16384 lanes x 160 x 112), with kernel and
-     plain times and each kernel's bound
+     plain times and each kernel's bound; K1 also with each group size
+     (threads per lane) that takes the width, timed per group size at the
+     main-path shape, and on the edge lanes of k1_edge_lanes at 100 bp
+     and 250 bp widths (M 112 and 256), B 1 and 1001
   4. main path (v2): an E. coli-scale genome (4.6 Mb, seed 2024) and 100k
      100 bp pairs, made once under .smoke/; `pemapper --device` in
      8192-pair batches through the port's command line, against the
@@ -31,10 +36,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
      memory
 
 Then a JSON line of the kernels, and last the result line
-{"ok": true, "device": {...}}.  Needs no network and starts no process
-that outlives it.  The script and the port import nothing of jax nor of
-the JAX package pecaller_tpu; the run fails if either entered
-sys.modules.
+{"ok": true, "device": {...}}.  With --kernels: phases 1-3, the kernels
+line with launches null, and no result line.  Needs no network and
+starts no process that outlives it.  The script and the port import
+nothing of jax nor of the JAX package pecaller_tpu; the run fails if
+either entered sys.modules.
 """
 
 from __future__ import annotations
@@ -54,10 +60,13 @@ DATA = os.path.join(ROOT, ".smoke")
 GENOME_LEN = 4_600_000
 BATCH = 8192
 N_ROWS = 125                       # R_ROWS of 100 bp reads: 104 + 2*10 + 1
-# H100 SXM peaks used for the bounds (NVIDIA data sheet; 700 W): HBM
-# bytes/s, and int32 operations/s = 132 SMs x 64 INT32 lanes x 1.98 GHz
+# H100 SXM rates used for the bounds (NVIDIA data sheet; 700 W): HBM
+# bytes/s, and integer operations/s at the card's issue rate, 132 SMs x
+# 4 schedulers x one 32-thread instruction a clock x 1.98 GHz.  Integer
+# work issues on the FMA pipes (IMAD, IADD3) as well as on an SM's 64
+# INT32 lanes, so the INT32 lanes alone (half this rate) are no ceiling.
 HBM_BPS = 3.35e12
-INT32_OPS = 132 * 64 * 1.98e9
+INT_OPS = 132 * 4 * 32 * 1.98e9
 # integer operations per DP cell, counted in each kernel's inner loop
 # (match test, three planes, running max, index arithmetic; K2 adds the
 # decision and tie bits of three cells per replayed cell)
@@ -94,7 +103,7 @@ def card_info():
     return smi
 
 
-def build():
+def build(sass=False):
     from pecaller_tpu_torch.ops import sw_cuda
     t0 = time.time()
     lib = sw_cuda.build_kernels()
@@ -102,13 +111,53 @@ def build():
     # ptxas -v: registers and spills of each kernel instance
     ptxas, name = {}, None
     for ln in sw_cuda.BUILD_INFO.get("ptxas", "").splitlines():
-        m = re.search(r"entry function '_Z\d+(\w+?)ILb([01])E", ln)
+        m = re.search(r"entry function '(_Z\w+)'", ln)
         if m:
-            name = f"{m.group(1)}<bisulfite={m.group(2)}>"
+            name = _instance(m.group(1))
         elif name and ("spill" in ln or "registers" in ln):
             ptxas.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
     say("build", seconds=round(time.time() - t0, 3),
-        library=os.path.relpath(lib, ROOT), ptxas=ptxas)
+        library=os.path.relpath(lib, ROOT), ptxas=ptxas,
+        **({"sass": sass_k1(lib)} if sass else {}))
+
+
+def _instance(mangled):
+    """Kernel instance from its mangled name: K1 <bisulfite, group,
+    columns>, K2 and K3 <bisulfite>."""
+    m = re.match(r"_Z\d+(\w+?)I((?:L[bi]\d+E)+)E", mangled)
+    return "{}<{}>".format(m.group(1), ",".join(
+        re.findall(r"L[bi](\d+)E", m.group(2)))) if m else mangled
+
+
+def sass_k1(lib):
+    """From the SASS of each K1 instance (the toolkit's cuobjdump; None
+    without it): its Hopper DPX instructions (VIMNMX3, VIADDMNMX), and
+    the instructions of its row loop, from the loop's head to the branch
+    back to it after the row's reference-byte shuffle (SHFL.IDX); None
+    where the SASS has no such loop.  A diagnostic of --kernels."""
+    from pecaller_tpu_torch.ops import sw_cuda
+    exe = os.path.join(os.path.dirname(sw_cuda._nvcc()), "cuobjdump")
+    if not os.path.exists(exe):
+        return None
+    sass = subprocess.run([exe, "-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        name = _instance(part.split(None, 1)[0])
+        if not name.startswith("sw_align_x"):
+            continue
+        ins = [(int(a, 16), t) for a, t in re.findall(
+            r"/\*([0-9a-f]{4})\*/\s+([^;]*);", part)]
+        shfl = [a for a, t in ins if "SHFL.IDX" in t][:1]
+        back = [(a, int(m.group(1), 16)) for a, t in ins
+                if shfl and a > shfl[0]
+                for m in [re.search(r"BRA 0x([0-9a-f]+)", t)]
+                if m and int(m.group(1), 16) <= shfl[0]]
+        out[name] = dict(
+            {op: len(re.findall(rf"\b{op}\b", part))
+             for op in ("VIMNMX3", "VIADDMNMX")},
+            row_loop=(back[0][0] - back[0][1]) // 16 + 1 if back else None)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -163,6 +212,48 @@ def mk_lanes(rng, B, N, M, lo, hi, raw=False):
         spice(reads.astype(np.uint8)), rlens
 
 
+def k1_edge_lanes(rng, B, N, M, cols):
+    """K1's edge cases on xcodes, then the mk_lanes mix up to B lanes.
+    rlen at 0, at M, past M (M + 1, M + 7, -1) and at k*C - 1, k*C and
+    k*C + 1 for each C in ``cols`` (the segment boundaries of a thread
+    group), each three ways: a window around the read (flanks of 0-10
+    bases), the read equal to its window, and a homopolymer read in a
+    homopolymer window (exact ties everywhere).  Then a lane with blen
+    past N (so n_rows < blen for any n_rows) and one with blen < 0."""
+    import numpy as np
+    marks = {0, M}
+    for C in cols:
+        for k in range(1, M // C + 2):
+            marks |= {k * C - 1, k * C, k * C + 1}
+    marks = sorted(m for m in marks if 0 <= m <= M) + [M + 1, M + 7, -1]
+    refs, blens, reads, rlens = mk_lanes(rng, B, N, M, max(2, M - 30),
+                                         M + 1)
+    n = 0
+    for how in ("window", "equal", "homopolymer"):
+        for r in marks:
+            if n == B:
+                break
+            L = min(max(r, 0), M)
+            if how == "homopolymer":
+                base = rng.integers(0, 4)
+                reads[n, :L] = base
+                win = np.full(max(0, L + int(rng.integers(-3, 12))), base)
+            elif how == "equal":
+                win = reads[n, :L]
+            else:
+                win = np.concatenate([rng.integers(0, 4, rng.integers(0, 11)),
+                                      reads[n, :L],
+                                      rng.integers(0, 4, rng.integers(0, 11))])
+            refs[n] = 0
+            blens[n] = min(len(win), N)
+            refs[n, :blens[n]] = win[:blens[n]]
+            rlens[n] = r
+            n += 1
+    if n + 2 <= B:
+        blens[n], blens[n + 1] = N + 5, -3
+    return refs, blens, reads, rlens
+
+
 def _timed(fn, reps):
     import torch
     fn()
@@ -189,10 +280,10 @@ def _max_abs_err(xs, ys):
 
 def bound_ms(name, cells, in_bytes, out_bytes):
     """The least time the card could take: the larger of the bytes the
-    call must move over HBM and its integer operations over the int32
+    call must move over HBM and its integer operations over the issue
     rate.  Returns (ms, "bytes" or "operations")."""
     t_bytes = (in_bytes + out_bytes) / HBM_BPS
-    t_ops = cells * OPS_PER_CELL[name] / INT32_OPS
+    t_ops = cells * OPS_PER_CELL[name] / INT_OPS
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes > t_ops else "operations")
 
@@ -233,6 +324,7 @@ def kernel_check():
                                      f"M={M} bisulfite={bis}: K1 {e1}, "
                                      f"K2 {e2}")
             if ci == len(cases) - 1 and not bis:
+                main_x = (rx, bl, dx, rl, nr, pa)
                 cells1 = int((torch.clamp(bl, 0, nr).long()
                               * rl.clamp(0, M).long()).sum())
                 res["sw_align_x"] = dict(
@@ -257,6 +349,8 @@ def kernel_check():
                     shape=[U, N, M, nr], cells=cells2,
                     bound=bound_ms("sw_tb_rows", cells2, lane_bytes(*tb_in),
                                    lane_bytes(*kt)))
+
+    res["sw_align_x"].update(k1_groups(main_x))
 
     # K3 on raw bytes; the last case is the v1 main-path shape (both
     # ends' slots: H_CAP = 2 x 8192 lanes, N = 160, M = 112, all rows)
@@ -297,10 +391,58 @@ def kernel_check():
                                                    k3[1], k3[2])]
                 res["sw_align"]["eager_traceback_ms"] = _timed(
                     lambda: sw.sw_traceback_device(*tb, n_rows=nr), 2)
-    say("kernel_check", bitwise=True, cases=2 * (len(cases) + len(cases3)),
+    n_cases = 2 * (len(cases) + len(cases3))
+    say("kernel_check", bitwise=True,
+        cases=n_cases + res["sw_align_x"]["edge_cases"],
         **{k: {kk: (round(vv, 4) if isinstance(vv, float) else vv)
                for kk, vv in v.items()} for k, v in res.items()})
     return res
+
+
+def k1_groups(main_x):
+    """K1 with each group size that takes the width, against the plain
+    version: on the main-path mix (timed per group size) and on the edge
+    lanes of k1_edge_lanes at 100 bp (M 112) and 250 bp (M 256) widths,
+    with B = 1 and B = 1001 (a multiple of no block's lanes)."""
+    import numpy as np
+    import torch
+    from pecaller_tpu_torch.ops import sw2, sw_cuda
+    dev = torch.device("cuda", 0)
+    lib = sw_cuda.load_kernels()
+    rx, bl, dx, rl, nr, pa = main_x
+    M = dx.shape[1]
+    out = dict(group=lib.sw_align_x_group(M), group_cols={}, group_ms={})
+    for g in (8, 16, 32):
+        if not lib.sw_align_x_cols(M, g):
+            continue
+        e = _max_abs_err(sw_cuda.sw_align_x(rx, bl, dx, rl, n_rows=nr,
+                                            group=g), pa)
+        if e:
+            raise AssertionError(f"K1 group {g} != plain on the main mix")
+        out["group_cols"][g] = lib.sw_align_x_cols(M, g)
+        out["group_ms"][g] = _timed(lambda: sw_cuda.sw_align_x(
+            rx, bl, dx, rl, n_rows=nr, group=g), 5)
+    n = 0
+    for M, N, nr in ((112, 144, N_ROWS), (256, 288, 270)):
+        groups = [g for g in (8, 16, 32) if lib.sw_align_x_cols(M, g)]
+        cols = [lib.sw_align_x_cols(M, g) for g in groups]
+        for bis in (False, True):
+            lanes = [torch.from_numpy(x).to(dev) for x in k1_edge_lanes(
+                np.random.default_rng(700 + M + bis), 1001, N, M, cols)]
+            for sub in (lanes, [x[-1:] for x in lanes],
+                        [x[1:2] for x in lanes]):
+                p = sw2.sw_align_x(*sub, bisulfite=bis, n_rows=nr)
+                for g in groups:
+                    k = sw_cuda.sw_align_x(*sub, bisulfite=bis, n_rows=nr,
+                                           group=g)
+                    torch.cuda.synchronize()
+                    e = _max_abs_err(k, p)
+                    if e:
+                        raise AssertionError(
+                            f"K1 group {g} != plain on edge lanes: M={M} "
+                            f"B={len(sub[0])} bisulfite={bis}: {e}")
+                    n += 1
+    return dict(out, edge_cases=n)
 
 
 # ---------------------------------------------------------------------------
@@ -750,18 +892,24 @@ def main():
                     help="read pairs of the main-path runs")
     ap.add_argument("--profile", action="store_true",
                     help="profile v1 batches instead of the phases 3-5")
+    ap.add_argument("--kernels", action="store_true",
+                    help="phases 1-3 only (card, build, kernel check): "
+                    "the kernels line with launches null, no result line")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     before = _foreign_modules()
     import torch
     card_info()
-    build()
+    build(sass=args.kernels)
     if args.profile:
         profile_v1(args.pairs)
         return
     kres = kernel_check()
-    launches, host = main_path(args.pairs)
-    launches.update(sw_align=v1_path(args.pairs, host)["sw_align"])
+    if args.kernels:
+        launches = dict.fromkeys(REPLACES)
+    else:
+        launches, host = main_path(args.pairs)
+        launches.update(sw_align=v1_path(args.pairs, host)["sw_align"])
     entered = sorted(_foreign_modules() - before)
     if entered:
         raise AssertionError(f"the run imported {entered[:5]}")
@@ -772,6 +920,8 @@ def main():
          "plain_ms": kres[k]["plain_ms"], "bound_ms": kres[k]["bound"][0],
          "bound_by": kres[k]["bound"][1], "library_ms": None}
         for k in REPLACES]}), flush=True)
+    if args.kernels:
+        return
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,4 +1,4 @@
-// C interface of the Smith-Waterman kernels (sw_align_x.cu,
+// C interface of the Smith-Waterman kernels K1 and K2 (sw_align_x.cu,
 // sw_tb_rows.cu), loaded from Python with ctypes (ops/sw_cuda.py).
 //
 // Every pointer is a device pointer of a contiguous tensor in the
@@ -22,14 +22,20 @@
 extern "C" {
 #endif
 
-// Shared memory one block of `threads` lanes needs for reads of width M.
+// K2: shared memory one block of `threads` lanes needs for reads of
+// width M (sw_tb_rows.cu).
 int sw_smem_bytes(int M, int threads);
 
+// K1: `group` is the threads per lane (8, 16 or 32; 0 =
+// sw_align_x_group(M), the main path's choice); each thread owns
+// sw_align_x_cols(M, group) columns (0: no instance takes width M).
+int sw_align_x_group(int M);
+int sw_align_x_cols(int M, int group);
 int sw_align_x_launch(const uint8_t* refs, const int32_t* blens,
                       const uint8_t* reads, const int32_t* rlens,
                       int32_t* score, int32_t* bk, int32_t* bi,
                       uint8_t* tie, int B, int N, int M, int n_rows,
-                      int bisulfite, void* stream);
+                      int bisulfite, int group, void* stream);
 
 // cube: (n_rows, M + 1, B) uint8 scratch for the decision bits.
 int sw_tb_rows_launch(const uint8_t* refs, const int32_t* blens,
@@ -51,10 +57,5 @@ __device__ __forceinline__ int sw_bump(int ref_x, int read_x) {
   bool m = (ref_x == read_x) | (ref_x == SW_XN) | (read_x == SW_XN);
   if (BIS) m = m | ((ref_x == 1) & (read_x == 3));
   return m ? SW_MATCH : SW_MISMATCH;
-}
-
-// Threads per block: 64 lanes while their DP rows fit in shared memory.
-static inline int sw_threads_for(int M) {
-  return sw_smem_bytes(M, 64) <= 200 * 1024 ? 64 : 32;
 }
 #endif

@@ -197,6 +197,16 @@ __global__ void sw_tb_rows_kernel(
   tie_out[lane] = tie;
 }
 
+extern "C" int sw_smem_bytes(int M, int threads) {
+  const int W = M + 1;
+  return W * threads * (3 * (int)sizeof(int32_t) + 1);
+}
+
+// Threads per block: 64 lanes while their DP rows fit in shared memory.
+static inline int sw_threads_for(int M) {
+  return sw_smem_bytes(M, 64) <= 200 * 1024 ? 64 : 32;
+}
+
 extern "C" int sw_tb_rows_launch(const uint8_t* refs, const int32_t* blens,
                                  const uint8_t* reads, const int32_t* rlens,
                                  const int32_t* bt_k, const int32_t* bt_i,

@@ -101,7 +101,11 @@ def load_kernels() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.sw_smem_bytes.argtypes = [ci, ci]
     lib.sw_smem_bytes.restype = ci
-    lib.sw_align_x_launch.argtypes = [vp] * 8 + [ci] * 5 + [vp]
+    lib.sw_align_x_group.argtypes = [ci]
+    lib.sw_align_x_group.restype = ci
+    lib.sw_align_x_cols.argtypes = [ci, ci]
+    lib.sw_align_x_cols.restype = ci
+    lib.sw_align_x_launch.argtypes = [vp] * 8 + [ci] * 6 + [vp]
     lib.sw_align_x_launch.restype = ci
     lib.sw_tb_rows_launch.argtypes = [vp] * 11 + [ci] * 5 + [vp]
     lib.sw_tb_rows_launch.restype = ci
@@ -127,6 +131,8 @@ def _check(name, x, dtype, shape, device):
 
 def _check_inputs(refs, blens, reads, rlens, n_rows, extra=(),
                   smem_fn="sw_smem_bytes"):
+    """Device, dtypes, shapes and contiguity; with ``smem_fn``, the read
+    width against the shared memory of a 32-lane block."""
     dev = refs.device
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
@@ -141,7 +147,7 @@ def _check_inputs(refs, blens, reads, rlens, n_rows, extra=(),
     if not 0 <= n_rows <= N:
         raise ValueError(f"n_rows {n_rows} outside [0, {N}]")
     lib = load_kernels()
-    if getattr(lib, smem_fn)(M, 32) > SMEM_LIMIT:
+    if smem_fn is not None and getattr(lib, smem_fn)(M, 32) > SMEM_LIMIT:
         raise ValueError(f"read width {M} needs more shared memory than "
                          "a block has")
     return lib, B, N, M
@@ -156,14 +162,21 @@ def _p(x) -> ctypes.c_void_p:
 
 
 def sw_align_x(refs, blens, reads, rlens, bisulfite: bool = False,
-               n_rows: int | None = None):
+               n_rows: int | None = None, group: int = 0):
     """K1.  Same contract as sw2.sw_align_x: (score, k, i) int32 and
-    tie bool, each (B,)."""
+    tie bool, each (B,).  ``group``: threads per lane on the card, 0 =
+    the kernel's choice for the read width (the main path); 8, 16 or 32
+    force a group size, for the tests and chip_smoke.py's per-group
+    times."""
     n_rows = refs.shape[1] if n_rows is None else n_rows
     if refs.device.type == "cpu":
         return sw2.sw_align_x(refs, blens, reads, rlens,
                               bisulfite=bisulfite, n_rows=n_rows)
-    lib, B, N, M = _check_inputs(refs, blens, reads, rlens, n_rows)
+    lib, B, N, M = _check_inputs(refs, blens, reads, rlens, n_rows,
+                                 smem_fn=None)
+    if lib.sw_align_x_cols(M, group) == 0:
+        raise ValueError(f"no sw_align_x instance with {group} threads "
+                         f"per lane takes read width {M}")
     dev = refs.device
     score = torch.empty(B, dtype=torch.int32, device=dev)
     bk = torch.empty(B, dtype=torch.int32, device=dev)
@@ -172,7 +185,7 @@ def sw_align_x(refs, blens, reads, rlens, bisulfite: bool = False,
     with torch.cuda.device(dev):
         rc = lib.sw_align_x_launch(
             _p(refs), _p(blens), _p(reads), _p(rlens), _p(score), _p(bk),
-            _p(bi), _p(tie), B, N, M, n_rows, int(bool(bisulfite)),
+            _p(bi), _p(tie), B, N, M, n_rows, int(bool(bisulfite)), group,
             _stream(dev))
     if rc != 0:
         raise RuntimeError(f"sw_align_x launch failed: cudaError {rc}")

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import chip_smoke
 from pecaller_tpu.ops import sw2 as jsw2
 from pecaller_tpu.ops.sw_pallas2 import sw_align_x_pallas, sw_tb_rows_pallas
 from pecaller_tpu_torch.ops import sw2, sw_cuda
@@ -85,14 +86,37 @@ def test_wrappers_take_plain_path_on_cpu():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mix", ["mixed", "edges-100bp", "edges-250bp"])
 @pytest.mark.parametrize("bis", [False, True])
-def test_kernels_match_plain_on_card(cuda_device, bis):
-    rx, bl, dx, rl = _inputs(51 + bis, 2048, 144, 112, 80, 101)
+def test_kernels_match_plain_on_card(cuda_device, bis, mix):
+    """K1 with each group size that takes the width, and K2, against the
+    plain versions: on the adversarial mix, and (K1) on the edge lanes
+    of chip_smoke.k1_edge_lanes (rlen at 0, M, past M and at every
+    segment boundary, homopolymer ties, B = 1 and B = 1001)."""
+    lib = sw_cuda.load_kernels()
+    if mix == "mixed":
+        rx, bl, dx, rl = _inputs(51 + bis, 2048, 144, 112, 80, 101)
+        M, n_rows = 112, 125
+    else:
+        M, N, n_rows = {"edges-100bp": (112, 144, 125),
+                        "edges-250bp": (256, 288, 270)}[mix]
+        cols = [c for c in (lib.sw_align_x_cols(M, g) for g in (8, 16, 32))
+                if c]
+        rx, bl, dx, rl = chip_smoke.k1_edge_lanes(
+            np.random.default_rng(53 + bis), 1001, N, M, cols)
     args = [x.to(cuda_device) for x in _t(rx, bl, dx, rl)]
+    for sub in (args, [x[-1:] for x in args]):
+        p = sw2.sw_align_x(*sub, bisulfite=bis, n_rows=n_rows)
+        for group in (0, 8, 16, 32):
+            if not lib.sw_align_x_cols(M, group):
+                continue
+            k = sw_cuda.sw_align_x(*sub, bisulfite=bis, n_rows=n_rows,
+                                   group=group)
+            torch.cuda.synchronize()
+            assert all(torch.equal(x, y) for x, y in zip(p, k)), group
+    if mix != "mixed":
+        return
     p = sw2.sw_align_x(*args, bisulfite=bis, n_rows=125)
-    k = sw_cuda.sw_align_x(*args, bisulfite=bis, n_rows=125)
-    torch.cuda.synchronize()
-    assert all(torch.equal(x, y) for x, y in zip(p, k))
     pt = sw2.sw_traceback_rows(*args, p[1], p[2], bisulfite=bis,
                                n_rows=125)
     kt = sw_cuda.sw_traceback_rows(*args, p[1], p[2], bisulfite=bis,
@@ -112,3 +136,8 @@ def test_wrapper_rejects_bad_inputs_on_card(cuda_device):
     with pytest.raises(ValueError):
         sw_cuda.sw_align_x(args[0], args[1], args[2], args[3],
                            n_rows=65)
+    with pytest.raises(ValueError):                  # no such group size
+        sw_cuda.sw_align_x(*args, group=7)
+    wide = torch.zeros((64, 576), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError):                  # past the widest K1
+        sw_cuda.sw_align_x(args[0], args[1], wide, args[3])
