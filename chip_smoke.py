@@ -9,16 +9,18 @@ Phases (each prints one line; any failure raises and exits non-zero):
   1. card: name and power limit (nvidia-smi), torch / CUDA / nvcc versions
   2. build: compile the SW kernels K1, K2, K3 from pecaller_tpu_torch/csrc
      (one nvcc per source, all at once); ptxas registers and spills of
-     each instance, and with --kernels K1's SASS counts (sass_k1)
+     each instance, and with --kernels K1's and K2's SASS counts
+     (sass_rows)
   3. kernel check: each kernel against its plain PyTorch version on the
      card, bitwise, on adversarial mixes and at the main-path shapes
      (K1 24576 lanes x 144 x 112 with 125 rows, K2 16384 lanes of the
      same; K3 on raw bytes with lowercase and IUPAC letters, padding
      lanes, n_rows < N, and 16384 lanes x 160 x 112), with kernel and
-     plain times and each kernel's bound; K1 also with each group size
-     (threads per lane) that takes the width, timed per group size at the
-     main-path shape, and on the edge lanes of k1_edge_lanes at 100 bp
-     and 250 bp widths (M 112 and 256), B 1 and 1001
+     plain times and each kernel's bound; K1 and K2 also with each group
+     size (threads per lane) that takes the width, timed per group size
+     at the main-path shape, and on their edge lanes (k1_edge_lanes,
+     k2_edge_lanes) at 100 bp and 250 bp widths (M 112 and 256), B 1 and
+     1001
   4. main path (v2): an E. coli-scale genome (4.6 Mb, seed 2024) and 100k
      100 bp pairs, made once under .smoke/; `pemapper --device` in
      8192-pair batches through the port's command line, against the
@@ -67,10 +69,17 @@ N_ROWS = 125                       # R_ROWS of 100 bp reads: 104 + 2*10 + 1
 # INT32 lanes, so the INT32 lanes alone (half this rate) are no ceiling.
 HBM_BPS = 3.35e12
 INT_OPS = 132 * 4 * 32 * 1.98e9
-# integer operations per DP cell, counted in each kernel's inner loop
-# (match test, three planes, running max, index arithmetic; K2 adds the
-# decision and tie bits of three cells per replayed cell)
-OPS_PER_CELL = {"sw_align_x": 20, "sw_tb_rows": 60, "sw_align": 20}
+# integer operations per DP cell, in issue slots.  K1 and K3: 20,
+# counted in the first one-thread-per-lane kernels' inner loop (match
+# test, three planes, running max, index arithmetic); K1's SASS row loop
+# issues 309 instructions for 15 columns, ~20.6 a column.  K2: K1's 20
+# for the DP plus 19 for its decision byte (7 bits, each part computed
+# once, packed into words): what its phase-1 row loop issues beyond K1's
+# in the SASS of the main instance (8 threads x 15 columns: 589 against
+# 309, 280 for 15 columns, 18.7 a column; chip_smoke.py --kernels).
+# Counted as source operations the byte takes 29, more than that loop
+# issues (LOP3 and SEL fold the packing), so 29 was no floor.
+OPS_PER_CELL = {"sw_align_x": 20, "sw_tb_rows": 39, "sw_align": 20}
 
 
 def say(phase, **kw):
@@ -118,23 +127,24 @@ def build(sass=False):
             ptxas.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
     say("build", seconds=round(time.time() - t0, 3),
         library=os.path.relpath(lib, ROOT), ptxas=ptxas,
-        **({"sass": sass_k1(lib)} if sass else {}))
+        **({"sass": sass_rows(lib)} if sass else {}))
 
 
 def _instance(mangled):
-    """Kernel instance from its mangled name: K1 <bisulfite, group,
-    columns>, K2 and K3 <bisulfite>."""
+    """Kernel instance from its mangled name: K1 and K2 <bisulfite,
+    group, columns>, K3 <bisulfite>."""
     m = re.match(r"_Z\d+(\w+?)I((?:L[bi]\d+E)+)E", mangled)
     return "{}<{}>".format(m.group(1), ",".join(
         re.findall(r"L[bi](\d+)E", m.group(2)))) if m else mangled
 
 
-def sass_k1(lib):
-    """From the SASS of each K1 instance (the toolkit's cuobjdump; None
-    without it): its Hopper DPX instructions (VIMNMX3, VIADDMNMX), and
-    the instructions of its row loop, from the loop's head to the branch
-    back to it after the row's reference-byte shuffle (SHFL.IDX); None
-    where the SASS has no such loop.  A diagnostic of --kernels."""
+def sass_rows(lib):
+    """From the SASS of each K1 and K2 instance (the toolkit's cuobjdump;
+    None without it): its Hopper DPX instructions (VIMNMX3, VIADDMNMX),
+    and the instructions of its (phase-1) row loop, from the loop's head
+    to the branch back to it after the row's reference-byte shuffle (the
+    first SHFL.IDX); None where the SASS has no such loop.  A diagnostic
+    of --kernels."""
     from pecaller_tpu_torch.ops import sw_cuda
     exe = os.path.join(os.path.dirname(sw_cuda._nvcc()), "cuobjdump")
     if not os.path.exists(exe):
@@ -144,10 +154,10 @@ def sass_k1(lib):
     out = {}
     for part in sass.split("Function : ")[1:]:
         name = _instance(part.split(None, 1)[0])
-        if not name.startswith("sw_align_x"):
+        if not name.startswith(("sw_align_x", "sw_tb_rows")):
             continue
         ins = [(int(a, 16), t) for a, t in re.findall(
-            r"/\*([0-9a-f]{4})\*/\s+([^;]*);", part)]
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)]
         shfl = [a for a, t in ins if "SHFL.IDX" in t][:1]
         back = [(a, int(m.group(1), 16)) for a, t in ins
                 if shfl and a > shfl[0]
@@ -212,6 +222,16 @@ def mk_lanes(rng, B, N, M, lo, hi, raw=False):
         spice(reads.astype(np.uint8)), rlens
 
 
+def edge_marks(M, cols):
+    """The rlen values of k1_edge_lanes: 0, M, k*C - 1, k*C and k*C + 1
+    for each C in ``cols`` within [0, M], then M + 1, M + 7 and -1."""
+    marks = {0, M}
+    for C in cols:
+        for k in range(1, M // C + 2):
+            marks |= {k * C - 1, k * C, k * C + 1}
+    return sorted(m for m in marks if 0 <= m <= M) + [M + 1, M + 7, -1]
+
+
 def k1_edge_lanes(rng, B, N, M, cols):
     """K1's edge cases on xcodes, then the mk_lanes mix up to B lanes.
     rlen at 0, at M, past M (M + 1, M + 7, -1) and at k*C - 1, k*C and
@@ -221,11 +241,7 @@ def k1_edge_lanes(rng, B, N, M, cols):
     homopolymer window (exact ties everywhere).  Then a lane with blen
     past N (so n_rows < blen for any n_rows) and one with blen < 0."""
     import numpy as np
-    marks = {0, M}
-    for C in cols:
-        for k in range(1, M // C + 2):
-            marks |= {k * C - 1, k * C, k * C + 1}
-    marks = sorted(m for m in marks if 0 <= m <= M) + [M + 1, M + 7, -1]
+    marks = edge_marks(M, cols)
     refs, blens, reads, rlens = mk_lanes(rng, B, N, M, max(2, M - 30),
                                          M + 1)
     n = 0
@@ -254,6 +270,83 @@ def k1_edge_lanes(rng, B, N, M, cols):
     return refs, blens, reads, rlens
 
 
+def k2_edge_lanes(rng, B, N, M, cols, n_rows, n_mix=41):
+    """K2's edge cases: the lanes of k1_edge_lanes, whose starts the
+    caller takes from the plain sw_align_x (the starts the main path
+    gives K2), with forced starts written over the last lanes (B None:
+    just enough lanes for every one, with n_mix of the random mix).  Returns
+    (refs, blens, reads, rlens, bt_k, bt_i, forced): bt_k and bt_i hold
+    the forced starts where ``forced``.  The forced starts:
+    plane 2 with jj = rlen at k*C - 1, k*C and k*C + 1 for each C in
+    ``cols``; reads with an insertion of 5 to 50 bases (crossing thread
+    segments) walked from its end in plane 2, and from their natural
+    start; insertions at the read's start walked in plane 2, so the walk
+    dies inside the run; bt_i past n_rows, past blen, 0 and below 0;
+    rlen 0, M, M + 1, M + 7 and -1; then random starts in every plane."""
+    import numpy as np
+    lanes = []                  # (window, read, rlen, bt_k, bt_i, forced)
+
+    def rand(n):
+        return rng.integers(0, 4, n).astype(np.uint8)
+
+    def rows_of(win):
+        return max(1, min(len(win), N, n_rows))
+    for C in cols:
+        for k in range(1, M // C + 2):
+            for r in (k * C - 1, k * C, k * C + 1):
+                if 1 <= r <= M:
+                    rd = rand(r)
+                    win = np.concatenate([rand(rng.integers(0, 6)), rd,
+                                          rand(rng.integers(0, 6))])
+                    lanes.append((win, rd, r, 2,
+                                  int(rng.integers(1, rows_of(win) + 1)),
+                                  True))
+    for L in (5, 9, 17, 33, 50):
+        if L + 20 > M:
+            continue
+        win = rand(min(M - L, N - 4))
+        p = int(rng.integers(2, len(win) - 2))
+        rd = np.concatenate([win[:p], rand(L), win[p:]])[:M]
+        lanes.append((win, rd, len(rd), 0, 0, False))
+        lanes.append((win, rd, p + L, 2, min(p, n_rows), True))
+        rd0 = np.concatenate([rand(L), win])[:M]       # run from column 1
+        lanes.append((win, rd0, L, 2, int(rng.integers(1, 4)), True))
+        lanes.append((win, rd0, len(rd0), 2, rows_of(win), True))
+    for bi in (n_rows + 1, N + 3, 0, -2):
+        for bk in (0, 1, 2):
+            rd = rand(M - 10)
+            lanes.append((rd, rd, M - 10, bk, bi, True))
+    for r in (0, M, M + 1, M + 7, -1):
+        for bk in (0, 1, 2):
+            rd = rand(M)
+            lanes.append((rd, rd, r, bk, rows_of(rd), True))
+    for bk in (0, 1, 2):                # bt_i past blen: rows that hold
+        rd = rand(M - 20)
+        lanes.append((rd[:10], rd, M - 20, bk, min(40, n_rows), True))
+    for _ in range(40):
+        rd = rand(M)
+        win = np.concatenate([rand(rng.integers(0, 11)), rd,
+                              rand(rng.integers(0, 11))])
+        lanes.append((win, rd, int(rng.integers(-1, M + 3)),
+                      int(rng.integers(0, 3)),
+                      int(rng.integers(-1, n_rows + 3)), True))
+    if B is None:               # every edge lane, forced start and n_mix
+        B = 3 * len(edge_marks(M, cols)) + n_mix + len(lanes)
+    refs, blens, reads, rlens = k1_edge_lanes(rng, B, N, M, cols)
+    bt_k = np.zeros(B, np.int32)
+    bt_i = np.zeros(B, np.int32)
+    forced = np.zeros(B, bool)
+    lanes = lanes[-B:]
+    for n, (win, rd, r, bk, bi, f) in zip(range(B - len(lanes), B), lanes):
+        reads[n] = 0
+        reads[n, :len(rd)] = rd
+        refs[n] = 0
+        blens[n] = min(len(win), N)
+        refs[n, :blens[n]] = win[:blens[n]]
+        rlens[n], bt_k[n], bt_i[n], forced[n] = r, bk, bi, f
+    return refs, blens, reads, rlens, bt_k, bt_i, forced
+
+
 def _timed(fn, reps):
     import torch
     fn()
@@ -274,7 +367,8 @@ def _max_abs_err(xs, ys):
         if x.shape != y.shape:
             raise AssertionError(f"shape {tuple(x.shape)} != "
                                  f"{tuple(y.shape)}")
-        err = max(err, int((x.long() - y.long()).abs().max()))
+        if x.numel():
+            err = max(err, int((x.long() - y.long()).abs().max()))
     return err
 
 
@@ -337,6 +431,7 @@ def kernel_check():
                     bound=bound_ms("sw_align_x", cells1,
                                    lane_bytes(rx, bl, dx, rl),
                                    lane_bytes(*ka)))
+                main_tb = (tb_in, nr, pt)
                 alive = (tb_in[5] > 0) & (tb_in[3] > 0)
                 cells2 = int((torch.clamp(tb_in[5], 0, nr).long()
                               * alive.long()).sum()) * M
@@ -351,6 +446,7 @@ def kernel_check():
                                    lane_bytes(*kt)))
 
     res["sw_align_x"].update(k1_groups(main_x))
+    res["sw_tb_rows"].update(k2_groups(main_tb))
 
     # K3 on raw bytes; the last case is the v1 main-path shape (both
     # ends' slots: H_CAP = 2 x 8192 lanes, N = 160, M = 112, all rows)
@@ -393,7 +489,8 @@ def kernel_check():
                     lambda: sw.sw_traceback_device(*tb, n_rows=nr), 2)
     n_cases = 2 * (len(cases) + len(cases3))
     say("kernel_check", bitwise=True,
-        cases=n_cases + res["sw_align_x"]["edge_cases"],
+        cases=n_cases + res["sw_align_x"]["edge_cases"]
+        + res["sw_tb_rows"]["edge_cases"],
         **{k: {kk: (round(vv, 4) if isinstance(vv, float) else vv)
                for kk, vv in v.items()} for k, v in res.items()})
     return res
@@ -411,21 +508,21 @@ def k1_groups(main_x):
     lib = sw_cuda.load_kernels()
     rx, bl, dx, rl, nr, pa = main_x
     M = dx.shape[1]
-    out = dict(group=lib.sw_align_x_group(M), group_cols={}, group_ms={})
+    out = dict(group=lib.sw_lane_group(M), group_cols={}, group_ms={})
     for g in (8, 16, 32):
-        if not lib.sw_align_x_cols(M, g):
+        if not lib.sw_lane_cols(M, g):
             continue
         e = _max_abs_err(sw_cuda.sw_align_x(rx, bl, dx, rl, n_rows=nr,
                                             group=g), pa)
         if e:
             raise AssertionError(f"K1 group {g} != plain on the main mix")
-        out["group_cols"][g] = lib.sw_align_x_cols(M, g)
+        out["group_cols"][g] = lib.sw_lane_cols(M, g)
         out["group_ms"][g] = _timed(lambda: sw_cuda.sw_align_x(
             rx, bl, dx, rl, n_rows=nr, group=g), 5)
     n = 0
     for M, N, nr in ((112, 144, N_ROWS), (256, 288, 270)):
-        groups = [g for g in (8, 16, 32) if lib.sw_align_x_cols(M, g)]
-        cols = [lib.sw_align_x_cols(M, g) for g in groups]
+        groups = [g for g in (8, 16, 32) if lib.sw_lane_cols(M, g)]
+        cols = [lib.sw_lane_cols(M, g) for g in groups]
         for bis in (False, True):
             lanes = [torch.from_numpy(x).to(dev) for x in k1_edge_lanes(
                 np.random.default_rng(700 + M + bis), 1001, N, M, cols)]
@@ -440,6 +537,65 @@ def k1_groups(main_x):
                     if e:
                         raise AssertionError(
                             f"K1 group {g} != plain on edge lanes: M={M} "
+                            f"B={len(sub[0])} bisulfite={bis}: {e}")
+                    n += 1
+    return dict(out, edge_cases=n)
+
+
+def k2_groups(main_tb):
+    """K2 with each group size that takes the width, against the plain
+    version: on the main-path winners (timed per group size, with the
+    cube's bytes per launch; and with n_rows = 0) and on the edge lanes of k2_edge_lanes at
+    100 bp (M 112) and 250 bp (M 256) widths, with B = 1001 and two
+    B = 1 slices (a forced start and an edge lane)."""
+    import numpy as np
+    import torch
+    from pecaller_tpu_torch.ops import sw2, sw_cuda
+    dev = torch.device("cuda", 0)
+    lib = sw_cuda.load_kernels()
+    tb_in, nr, pt = main_tb
+    U, M = tb_in[2].shape
+    out = dict(group=lib.sw_lane_group(M), group_cols={}, group_ms={},
+               cube_bytes={g: U * nr * lib.sw_tb_rows_row_bytes(M, g)
+                           for g in (0, 8, 16, 32)
+                           if lib.sw_lane_cols(M, g)})
+    pt0 = sw2.sw_traceback_rows(*tb_in, n_rows=0)   # no rows to walk
+    for g in (8, 16, 32):
+        if not lib.sw_lane_cols(M, g):
+            continue
+        e = _max_abs_err(sw_cuda.sw_traceback_rows(*tb_in, n_rows=nr,
+                                                   group=g), pt)
+        e0 = _max_abs_err(sw_cuda.sw_traceback_rows(*tb_in, n_rows=0,
+                                                    group=g), pt0)
+        if e or e0:
+            raise AssertionError(f"K2 group {g} != plain on the main mix "
+                                 f"({e}; with n_rows 0: {e0})")
+        out["group_cols"][g] = lib.sw_lane_cols(M, g)
+        out["group_ms"][g] = _timed(lambda: sw_cuda.sw_traceback_rows(
+            *tb_in, n_rows=nr, group=g), 5)
+    n = 0
+    for M, N, nr in ((112, 144, N_ROWS), (256, 288, 270)):
+        groups = [g for g in (8, 16, 32) if lib.sw_lane_cols(M, g)]
+        cols = [lib.sw_lane_cols(M, g) for g in groups]
+        for bis in (False, True):
+            rx, bl, dx, rl, fk, fi, forced = (
+                torch.from_numpy(x).to(dev) for x in k2_edge_lanes(
+                    np.random.default_rng(900 + M + bis), 1001, N, M,
+                    cols, nr))
+            p = sw2.sw_align_x(rx, bl, dx, rl, bisulfite=bis, n_rows=nr)
+            tb = [rx, bl, dx, rl, torch.where(forced, fk, p[1]),
+                  torch.where(forced, fi, p[2])]
+            for sub in (tb, [x[-1:] for x in tb], [x[1:2] for x in tb]):
+                want = sw2.sw_traceback_rows(*sub, bisulfite=bis,
+                                             n_rows=nr)
+                for g in groups:
+                    got = sw_cuda.sw_traceback_rows(*sub, bisulfite=bis,
+                                                    n_rows=nr, group=g)
+                    torch.cuda.synchronize()
+                    e = _max_abs_err(got, want)
+                    if e:
+                        raise AssertionError(
+                            f"K2 group {g} != plain on edge lanes: M={M} "
                             f"B={len(sub[0])} bisulfite={bis}: {e}")
                     n += 1
     return dict(out, edge_cases=n)

@@ -1,5 +1,5 @@
 // C interface of the Smith-Waterman kernels K1 and K2 (sw_align_x.cu,
-// sw_tb_rows.cu), loaded from Python with ctypes (ops/sw_cuda.py).
+// sw_tb_rows.cu; their shared thread-group row in sw_group.cuh), loaded from Python with ctypes (ops/sw_cuda.py).
 //
 // Every pointer is a device pointer of a contiguous tensor in the
 // (lanes, .) layout of ops/sw2.py; `stream` is a cudaStream_t.  The
@@ -22,28 +22,31 @@
 extern "C" {
 #endif
 
-// K2: shared memory one block of `threads` lanes needs for reads of
-// width M (sw_tb_rows.cu).
-int sw_smem_bytes(int M, int threads);
+// The instance table of K1 and K2 (sw_group.cuh): a launch with
+// `group` threads per lane (8, 16 or 32; 0 = sw_lane_group(M), the main
+// path's choice) gives each thread sw_lane_cols(M, group) columns (0: no
+// instance takes width M).
+int sw_lane_group(int M);
+int sw_lane_cols(int M, int group);
 
-// K1: `group` is the threads per lane (8, 16 or 32; 0 =
-// sw_align_x_group(M), the main path's choice); each thread owns
-// sw_align_x_cols(M, group) columns (0: no instance takes width M).
-int sw_align_x_group(int M);
-int sw_align_x_cols(int M, int group);
+// K1.
 int sw_align_x_launch(const uint8_t* refs, const int32_t* blens,
                       const uint8_t* reads, const int32_t* rlens,
                       int32_t* score, int32_t* bk, int32_t* bi,
                       uint8_t* tie, int B, int N, int M, int n_rows,
                       int bisulfite, int group, void* stream);
 
-// cube: (n_rows, M + 1, B) uint8 scratch for the decision bits.
+// K2: cube: (B, n_rows, sw_tb_rows_row_bytes(M, group)) uint8 scratch
+// for the decision bytes, 16-byte aligned; row i of a lane is G slots,
+// thread g's slot holding the bytes of its C columns (0 where no
+// instance takes width M).
+int sw_tb_rows_row_bytes(int M, int group);
 int sw_tb_rows_launch(const uint8_t* refs, const int32_t* blens,
                       const uint8_t* reads, const int32_t* rlens,
                       const int32_t* bt_k, const int32_t* bt_i,
                       uint8_t* cube, int8_t* ev_kind, int32_t* ins_j,
                       int32_t* ins_len, uint8_t* tie, int B, int N, int M,
-                      int n_rows, int bisulfite, void* stream);
+                      int n_rows, int bisulfite, int group, void* stream);
 
 #ifdef __cplusplus
 }

@@ -28,7 +28,7 @@ from . import sw, sw2
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 _SOURCES = ("sw_align_x.cu", "sw_tb_rows.cu", "sw_align.cu")
-_HEADER = "sw_kernels.h"
+_HEADERS = ("sw_kernels.h", "sw_group.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_CSRC)), "build",
                          "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -57,7 +57,7 @@ def build_kernels() -> str:
     """Compile the kernels (once per source hash); returns the .so path.
     Each source compiles in its own nvcc process, all at once."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in (_HEADER, *_SOURCES):
+    for name in (*_HEADERS, *_SOURCES):
         with open(os.path.join(_CSRC, name), "rb") as f:
             h.update(f.read())
     lib = os.path.join(BUILD_DIR, f"libsw_{h.hexdigest()[:16]}.so")
@@ -99,15 +99,15 @@ def load_kernels() -> ctypes.CDLL:
         return _LIB
     lib = ctypes.CDLL(build_kernels())
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.sw_smem_bytes.argtypes = [ci, ci]
-    lib.sw_smem_bytes.restype = ci
-    lib.sw_align_x_group.argtypes = [ci]
-    lib.sw_align_x_group.restype = ci
-    lib.sw_align_x_cols.argtypes = [ci, ci]
-    lib.sw_align_x_cols.restype = ci
+    lib.sw_lane_group.argtypes = [ci]
+    lib.sw_lane_group.restype = ci
+    lib.sw_lane_cols.argtypes = [ci, ci]
+    lib.sw_lane_cols.restype = ci
     lib.sw_align_x_launch.argtypes = [vp] * 8 + [ci] * 6 + [vp]
     lib.sw_align_x_launch.restype = ci
-    lib.sw_tb_rows_launch.argtypes = [vp] * 11 + [ci] * 5 + [vp]
+    lib.sw_tb_rows_row_bytes.argtypes = [ci, ci]
+    lib.sw_tb_rows_row_bytes.restype = ci
+    lib.sw_tb_rows_launch.argtypes = [vp] * 11 + [ci] * 6 + [vp]
     lib.sw_tb_rows_launch.restype = ci
     lib.sw_align_smem_bytes.argtypes = [ci, ci]
     lib.sw_align_smem_bytes.restype = ci
@@ -130,7 +130,7 @@ def _check(name, x, dtype, shape, device):
 
 
 def _check_inputs(refs, blens, reads, rlens, n_rows, extra=(),
-                  smem_fn="sw_smem_bytes"):
+                  smem_fn=None):
     """Device, dtypes, shapes and contiguity; with ``smem_fn``, the read
     width against the shared memory of a 32-lane block."""
     dev = refs.device
@@ -172,9 +172,8 @@ def sw_align_x(refs, blens, reads, rlens, bisulfite: bool = False,
     if refs.device.type == "cpu":
         return sw2.sw_align_x(refs, blens, reads, rlens,
                               bisulfite=bisulfite, n_rows=n_rows)
-    lib, B, N, M = _check_inputs(refs, blens, reads, rlens, n_rows,
-                                 smem_fn=None)
-    if lib.sw_align_x_cols(M, group) == 0:
+    lib, B, N, M = _check_inputs(refs, blens, reads, rlens, n_rows)
+    if lib.sw_lane_cols(M, group) == 0:
         raise ValueError(f"no sw_align_x instance with {group} threads "
                          f"per lane takes read width {M}")
     dev = refs.device
@@ -194,17 +193,24 @@ def sw_align_x(refs, blens, reads, rlens, bisulfite: bool = False,
 
 
 def sw_traceback_rows(refs, blens, reads, rlens, bt_k, bt_i,
-                      bisulfite: bool = False, n_rows: int | None = None):
+                      bisulfite: bool = False, n_rows: int | None = None,
+                      group: int = 0):
     """K2.  Same contract as sw2.sw_traceback_rows: ev_kind int8,
-    ins_j int32, ins_len int32, each (B, n_rows), and tie (B,) bool."""
+    ins_j int32, ins_len int32, each (B, n_rows), and tie (B,) bool.
+    ``group``: threads per lane on the card, as for sw_align_x."""
     n_rows = refs.shape[1] if n_rows is None else n_rows
     if refs.device.type == "cpu":
         return sw2.sw_traceback_rows(refs, blens, reads, rlens, bt_k, bt_i,
                                      bisulfite=bisulfite, n_rows=n_rows)
     lib, B, N, M = _check_inputs(refs, blens, reads, rlens, n_rows,
                                  extra=(("bt_k", bt_k), ("bt_i", bt_i)))
+    row_bytes = lib.sw_tb_rows_row_bytes(M, group)
+    if row_bytes == 0:
+        raise ValueError(f"no sw_tb_rows instance with {group} threads "
+                         f"per lane takes read width {M}")
     dev = refs.device
-    cube = torch.empty((n_rows, M + 1, B), dtype=torch.uint8, device=dev)
+    cube = torch.empty((B, n_rows, row_bytes), dtype=torch.uint8,
+                       device=dev)
     ev_kind = torch.empty((B, n_rows), dtype=torch.int8, device=dev)
     ins_j = torch.empty((B, n_rows), dtype=torch.int32, device=dev)
     ins_len = torch.empty((B, n_rows), dtype=torch.int32, device=dev)
@@ -213,7 +219,7 @@ def sw_traceback_rows(refs, blens, reads, rlens, bt_k, bt_i,
         rc = lib.sw_tb_rows_launch(
             _p(refs), _p(blens), _p(reads), _p(rlens), _p(bt_k), _p(bt_i),
             _p(cube), _p(ev_kind), _p(ins_j), _p(ins_len), _p(tie),
-            B, N, M, n_rows, int(bool(bisulfite)), _stream(dev))
+            B, N, M, n_rows, int(bool(bisulfite)), group, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"sw_tb_rows launch failed: cudaError {rc}")
     LAUNCHES["sw_tb_rows"] += 1

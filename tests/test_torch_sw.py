@@ -89,10 +89,13 @@ def test_wrappers_take_plain_path_on_cpu():
 @pytest.mark.parametrize("mix", ["mixed", "edges-100bp", "edges-250bp"])
 @pytest.mark.parametrize("bis", [False, True])
 def test_kernels_match_plain_on_card(cuda_device, bis, mix):
-    """K1 with each group size that takes the width, and K2, against the
-    plain versions: on the adversarial mix, and (K1) on the edge lanes
-    of chip_smoke.k1_edge_lanes (rlen at 0, M, past M and at every
-    segment boundary, homopolymer ties, B = 1 and B = 1001)."""
+    """K1 and K2 with each group size that takes the width against the
+    plain versions: on the adversarial mix, and on the edge lanes of
+    chip_smoke.k1_edge_lanes (K1: rlen at 0, M, past M and at every
+    segment boundary, homopolymer ties) and chip_smoke.k2_edge_lanes
+    (K2: those lanes plus forced starts: plane 2 at segment boundaries,
+    runs across segments, walks dying in a run, bt_i past n_rows, past
+    blen and <= 0), with B = 1001 and B = 1; K2 also with n_rows = 0."""
     lib = sw_cuda.load_kernels()
     if mix == "mixed":
         rx, bl, dx, rl = _inputs(51 + bis, 2048, 144, 112, 80, 101)
@@ -100,29 +103,38 @@ def test_kernels_match_plain_on_card(cuda_device, bis, mix):
     else:
         M, N, n_rows = {"edges-100bp": (112, 144, 125),
                         "edges-250bp": (256, 288, 270)}[mix]
-        cols = [c for c in (lib.sw_align_x_cols(M, g) for g in (8, 16, 32))
+        cols = [c for c in (lib.sw_lane_cols(M, g) for g in (8, 16, 32))
                 if c]
-        rx, bl, dx, rl = chip_smoke.k1_edge_lanes(
-            np.random.default_rng(53 + bis), 1001, N, M, cols)
+        rx, bl, dx, rl, fk, fi, forced = chip_smoke.k2_edge_lanes(
+            np.random.default_rng(53 + bis), 1001, N, M, cols, n_rows)
     args = [x.to(cuda_device) for x in _t(rx, bl, dx, rl)]
-    for sub in (args, [x[-1:] for x in args]):
+    for sub in (args, [x[-1:] for x in args], [x[1:2] for x in args]):
         p = sw2.sw_align_x(*sub, bisulfite=bis, n_rows=n_rows)
         for group in (0, 8, 16, 32):
-            if not lib.sw_align_x_cols(M, group):
+            if not lib.sw_lane_cols(M, group):
                 continue
             k = sw_cuda.sw_align_x(*sub, bisulfite=bis, n_rows=n_rows,
                                    group=group)
             torch.cuda.synchronize()
             assert all(torch.equal(x, y) for x, y in zip(p, k)), group
+    p = sw2.sw_align_x(*args, bisulfite=bis, n_rows=n_rows)
+    bk, bi = p[1], p[2]
     if mix != "mixed":
-        return
-    p = sw2.sw_align_x(*args, bisulfite=bis, n_rows=125)
-    pt = sw2.sw_traceback_rows(*args, p[1], p[2], bisulfite=bis,
-                               n_rows=125)
-    kt = sw_cuda.sw_traceback_rows(*args, p[1], p[2], bisulfite=bis,
-                                   n_rows=125)
-    torch.cuda.synchronize()
-    assert all(torch.equal(x, y) for x, y in zip(pt, kt))
+        f = torch.from_numpy(forced).to(cuda_device)
+        bk = torch.where(f, torch.from_numpy(fk).to(cuda_device), bk)
+        bi = torch.where(f, torch.from_numpy(fi).to(cuda_device), bi)
+    tb = args + [bk.contiguous(), bi.contiguous()]
+    # the last case has no rows: every walk is empty
+    for sub, nr in ((tb, n_rows), ([x[-1:] for x in tb], n_rows),
+                    ([x[1:2] for x in tb], n_rows), (tb, 0)):
+        pt = sw2.sw_traceback_rows(*sub, bisulfite=bis, n_rows=nr)
+        for group in (0, 8, 16, 32):
+            if not lib.sw_lane_cols(M, group):
+                continue
+            kt = sw_cuda.sw_traceback_rows(*sub, bisulfite=bis,
+                                           n_rows=nr, group=group)
+            torch.cuda.synchronize()
+            assert all(torch.equal(x, y) for x, y in zip(pt, kt)), group
 
 
 @pytest.mark.cuda
@@ -141,3 +153,8 @@ def test_wrapper_rejects_bad_inputs_on_card(cuda_device):
     wide = torch.zeros((64, 576), dtype=torch.uint8, device=cuda_device)
     with pytest.raises(ValueError):                  # past the widest K1
         sw_cuda.sw_align_x(args[0], args[1], wide, args[3])
+    with pytest.raises(ValueError):                  # past the widest K2
+        sw_cuda.sw_traceback_rows(args[0], args[1], wide, args[3],
+                                  args[1], args[1])
+    with pytest.raises(ValueError):                  # no such group size
+        sw_cuda.sw_traceback_rows(*args, args[1], args[1], group=7)

@@ -37,7 +37,7 @@ K1_COLS = {8: (8, 15, 16), 16: (8, 12, 16), 32: (4, 10, 12, 14, 16, 18)}
 
 
 def k1_cols(M, G):
-    """sw_align_x_cols(M, G): the kernel's columns per thread, 0 where
+    """sw_lane_cols(M, G): the kernel's columns per thread, 0 where
     no instance takes width M."""
     return next((C for C in K1_COLS[G] if G * C >= M + 1), 0)
 
@@ -50,9 +50,10 @@ def shfl_up(x, d):
     return out
 
 
-def group_align(refs, blens, reads, rlens, G, C, bisulfite, n_rows):
-    B = refs.shape[0]
-    M = reads.shape[1]
+def group_init(reads, G, C):
+    """Row 0 of the three planes and the read codes, (B, G, C) each, and
+    the global column of each slot (G, C) (sw_group_init)."""
+    B, M = reads.shape
     assert G * C >= M + 1
     j = np.arange(G * C, dtype=np.int64).reshape(G, C)
     b = -(OPEN + (j - 1) * EXT)
@@ -62,6 +63,43 @@ def group_align(refs, blens, reads, rlens, G, C, bisulfite, n_rows):
     inside = (j >= 1) & (j <= M)
     rd = np.zeros((B, G, C), np.int64)
     rd[:, inside] = reads[:, j[inside] - 1]
+    return S0, S1, S2, rd, j
+
+
+def group_row(S0, S1, S2, rd, rb, j, bisulfite):
+    """The new row (c0, c1, c2) of every lane's group (sw_group_row);
+    rb (B,) the row's reference codes."""
+    G = j.shape[0]
+    rb = rb.astype(np.int64)[:, None, None]
+    m = (rd == rb) | (rb == XN) | (rd == XN)
+    if bisulfite:
+        m |= (rb == 1) & (rd == 3)
+    old3 = np.maximum(np.maximum(S0, S1), S2)
+    p3 = np.concatenate([shfl_up(old3[:, :, -1], 1)[:, :, None],
+                         old3[:, :, :-1]], axis=2)
+    c0 = p3 + np.where(m, MATCH, MISMATCH)
+    c1 = np.maximum(S0 - OPEN, S1 - EXT)
+    c0[:, 0, 0] = 0                                      # column 0
+    c1[:, 0, 0] = 0
+    first = shfl_up(c0[:, :, -1], 1) - OPEN + j[:, 0]
+    first[:, 0] = -OPEN                                  # a[0]
+    a = np.concatenate([first[:, :, None],
+                        c0[:, :, :-1] - OPEN + j[:, 1:]], axis=2)
+    run = np.maximum.accumulate(a, axis=2)
+    x = run[:, :, -1]
+    d = 1
+    while d < G:
+        x = np.where(np.arange(G) >= d, np.maximum(x, shfl_up(x, d)), x)
+        d *= 2
+    ex = shfl_up(x, 1)
+    ex[:, 0] = NEG
+    return c0, c1, np.maximum(ex[:, :, None], run) - j
+
+
+def group_align(refs, blens, reads, rlens, G, C, bisulfite, n_rows):
+    B = refs.shape[0]
+    M = reads.shape[1]
+    S0, S1, S2, rd, j = group_init(reads, G, C)
     rlens = rlens.astype(np.int64)
     rows = np.clip(np.minimum(n_rows, blens.astype(np.int64)), 0, None)
     in_range = (rlens >= 0) & (rlens <= M)
@@ -73,30 +111,7 @@ def group_align(refs, blens, reads, rlens, G, C, bisulfite, n_rows):
     bi = np.zeros(B, np.int64)
     n_at = np.ones(B, np.int64)
     for i in range(1, int(rows[in_range].max(initial=0)) + 1):
-        rb = refs[:, i - 1].astype(np.int64)[:, None, None]
-        m = (rd == rb) | (rb == XN) | (rd == XN)
-        if bisulfite:
-            m |= (rb == 1) & (rd == 3)
-        old3 = np.maximum(np.maximum(S0, S1), S2)
-        p3 = np.concatenate([shfl_up(old3[:, :, -1], 1)[:, :, None],
-                             old3[:, :, :-1]], axis=2)
-        c0 = p3 + np.where(m, MATCH, MISMATCH)
-        c1 = np.maximum(S0 - OPEN, S1 - EXT)
-        c0[:, 0, 0] = 0                                  # column 0
-        c1[:, 0, 0] = 0
-        first = shfl_up(c0[:, :, -1], 1) - OPEN + j[:, 0]
-        first[:, 0] = -OPEN                              # a[0]
-        a = np.concatenate([first[:, :, None],
-                            c0[:, :, :-1] - OPEN + j[:, 1:]], axis=2)
-        run = np.maximum.accumulate(a, axis=2)
-        x = run[:, :, -1]
-        d = 1
-        while d < G:
-            x = np.where(np.arange(G) >= d, np.maximum(x, shfl_up(x, d)), x)
-            d *= 2
-        ex = shfl_up(x, 1)
-        ex[:, 0] = NEG
-        S0, S1, S2 = c0, c1, np.maximum(ex[:, :, None], run) - j
+        S0, S1, S2 = group_row(S0, S1, S2, rd, refs[:, i - 1], j, bisulfite)
         active = in_range & (i <= rows)
         for k, P in enumerate((S0, S1, S2)):
             v = P[lanes, g_own, c_own]
@@ -154,14 +169,14 @@ def test_plain_matches_jax_on_edges(bis, width):
 @pytest.mark.cuda
 def test_cols_table_matches_kernel(cuda_device):
     """K1_COLS, the model's copy of the kernel's instance table, against
-    the kernel's own sw_align_x_cols, and every case above against the
+    the kernel's own sw_lane_cols, and every case above against the
     group size the launch picks or a forced one that exists."""
     lib = sw_cuda.load_kernels()
     for M in range(-1, 600):
         for G in (8, 16, 32):
-            assert lib.sw_align_x_cols(M, G) == (k1_cols(M, G) if M >= 0
+            assert lib.sw_lane_cols(M, G) == (k1_cols(M, G) if M >= 0
                                                  else 0), (M, G)
-    assert lib.sw_align_x_group(112) == 8
-    assert lib.sw_align_x_group(127) == 8
-    assert lib.sw_align_x_group(255) == 16
-    assert lib.sw_align_x_group(256) == 32
+    assert lib.sw_lane_group(112) == 8
+    assert lib.sw_lane_group(127) == 8
+    assert lib.sw_lane_group(255) == 16
+    assert lib.sw_lane_group(256) == 32
