@@ -9,18 +9,18 @@ Phases (each prints one line; any failure raises and exits non-zero):
   1. card: name and power limit (nvidia-smi), torch / CUDA / nvcc versions
   2. build: compile the SW kernels K1, K2, K3 from pecaller_tpu_torch/csrc
      (one nvcc per source, all at once); ptxas registers and spills of
-     each instance, and with --kernels K1's and K2's SASS counts
+     each instance, and with --kernels the SASS counts of K1, K2 and K3
      (sass_rows)
   3. kernel check: each kernel against its plain PyTorch version on the
      card, bitwise, on adversarial mixes and at the main-path shapes
      (K1 24576 lanes x 144 x 112 with 125 rows, K2 16384 lanes of the
      same; K3 on raw bytes with lowercase and IUPAC letters, padding
      lanes, n_rows < N, and 16384 lanes x 160 x 112), with kernel and
-     plain times and each kernel's bound; K1 and K2 also with each group
-     size (threads per lane) that takes the width, timed per group size
-     at the main-path shape, and on their edge lanes (k1_edge_lanes,
-     k2_edge_lanes) at 100 bp and 250 bp widths (M 112 and 256), B 1 and
-     1001
+     plain times and each kernel's bound; each kernel also with each
+     group size (threads per lane) that takes the width, timed per group
+     size at the main-path shape, and on its edge lanes (k1_edge_lanes,
+     k2_edge_lanes, k3_edge_lanes) at 100 bp and 250 bp widths (M 112
+     and 256), B 1 and 1001
   4. main path (v2): an E. coli-scale genome (4.6 Mb, seed 2024) and 100k
      100 bp pairs, made once under .smoke/; `pemapper --device` in
      8192-pair batches through the port's command line, against the
@@ -69,17 +69,32 @@ N_ROWS = 125                       # R_ROWS of 100 bp reads: 104 + 2*10 + 1
 # INT32 lanes, so the INT32 lanes alone (half this rate) are no ceiling.
 HBM_BPS = 3.35e12
 INT_OPS = 132 * 4 * 32 * 1.98e9
-# integer operations per DP cell, in issue slots.  K1 and K3: 20,
-# counted in the first one-thread-per-lane kernels' inner loop (match
-# test, three planes, running max, index arithmetic); K1's SASS row loop
-# issues 309 instructions for 15 columns, ~20.6 a column.  K2: K1's 20
-# for the DP plus 19 for its decision byte (7 bits, each part computed
-# once, packed into words): what its phase-1 row loop issues beyond K1's
-# in the SASS of the main instance (8 threads x 15 columns: 589 against
-# 309, 280 for 15 columns, 18.7 a column; chip_smoke.py --kernels).
-# Counted as source operations the byte takes 29, more than that loop
-# issues (LOP3 and SEL fold the packing), so 29 was no floor.
-OPS_PER_CELL = {"sw_align_x": 20, "sw_tb_rows": 39, "sw_align": 20}
+# integer operations per DP cell, in issue slots: what the SASS row loop
+# of each kernel's main instance (8 threads x 15 columns; `--kernels`
+# prints its length as `row_loop` and writes its listing to
+# chiprun_out/sass_row_loops.txt) issues for its 15 cells, less the
+# instructions it issues once a row, over 15, rounded down.  Once a row:
+# the shuffles (7: the reference byte, two shfl_up, three scan steps,
+# the exclusive shift; K2 8, its byte's left part), the scan's compare
+# and select (3 a step, 9), the column-0, first-`a` and exclusive-shift
+# selects (5), the loop's count, test and branch (3), and
+#   K1: the owner's update of best / k / i / tie (BSSY, BSYNC, the
+#       branch and the 99 instructions it skips, 102), the owner and row
+#       tests (4), the reference's N test (1): 131 of 309, (309 - 131) /
+#       15 = 11.9;
+#   K3: the owner's update without the tie count (72 skipped, 75), the
+#       owner and row tests (4): 103 of 297 (both modes), (297 - 103) /
+#       15 = 12.9;
+#   K2: the step test and its ballot (14 with the mask moves and
+#       divergence branches), BSSY / BSYNC, WARPSYNC and NOP (4), the
+#       byte's left part (2), the store of the row's 16-byte words (6),
+#       the reference's N test (1): 52 of 589, (589 - 52) / 15 = 35.8.
+# A cell's own work is then the max3, the match test and bump, the two
+# viaddmax, the running max, the scan's max, the offsets and the row
+# copies; K3's byte test issues one more instruction than K1's (two
+# LOP3 and a PLOP3 against two ISETP) and K2 adds its decision byte.
+# A count of source operations is no floor: the compiler fuses them.
+OPS_PER_CELL = {"sw_align_x": 11, "sw_tb_rows": 35, "sw_align": 12}
 
 
 def say(phase, **kw):
@@ -131,30 +146,40 @@ def build(sass=False):
 
 
 def _instance(mangled):
-    """Kernel instance from its mangled name: K1 and K2 <bisulfite,
-    group, columns>, K3 <bisulfite>."""
-    m = re.match(r"_Z\d+(\w+?)I((?:L[bi]\d+E)+)E", mangled)
-    return "{}<{}>".format(m.group(1), ",".join(
-        re.findall(r"L[bi](\d+)E", m.group(2)))) if m else mangled
+    """Kernel instance from its mangled name, named by its wrapper:
+    sw_align_x<bisulfite,group,columns> for K1 and sw_align<...> for K3
+    (sw_group_align_kernel under SwXMatch and SwByteMatch), and
+    sw_tb_rows<...> for K2."""
+    m = re.match(r"_Z\d+(\w+?)I(?:\d+(Sw\w+?)I(Lb\dE)E(Lb\dE))?"
+                 r"((?:L[bi]\d+E)+)E", mangled)
+    if not m:
+        return mangled
+    name, rule, bis, _tie, args = m.groups()
+    if rule:
+        name, args = {"SwXMatch": "sw_align_x",
+                      "SwByteMatch": "sw_align"}[rule], bis + args
+    return "{}<{}>".format(name.removesuffix("_kernel"), ",".join(
+        re.findall(r"L[bi](\d+)E", args)))
 
 
 def sass_rows(lib):
-    """From the SASS of each K1 and K2 instance (the toolkit's cuobjdump;
-    None without it): its Hopper DPX instructions (VIMNMX3, VIADDMNMX),
-    and the instructions of its (phase-1) row loop, from the loop's head
-    to the branch back to it after the row's reference-byte shuffle (the
-    first SHFL.IDX); None where the SASS has no such loop.  A diagnostic
-    of --kernels."""
+    """From the SASS of each K1, K2 and K3 instance (the toolkit's
+    cuobjdump; None without it): its Hopper DPX instructions (VIMNMX3,
+    VIADDMNMX), and the instructions of its (phase-1) row loop, from the
+    loop's head to the branch back to it after the row's reference-byte
+    shuffle (the first SHFL.IDX); None where the SASS has no such loop.
+    The row loops of the main-path instances (<bisulfite,8,15>) go to
+    chiprun_out/sass_row_loops.txt.  A diagnostic of --kernels."""
     from pecaller_tpu_torch.ops import sw_cuda
     exe = os.path.join(os.path.dirname(sw_cuda._nvcc()), "cuobjdump")
     if not os.path.exists(exe):
         return None
     sass = subprocess.run([exe, "-sass", lib], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    out = {}
+    out, loops = {}, []
     for part in sass.split("Function : ")[1:]:
         name = _instance(part.split(None, 1)[0])
-        if not name.startswith(("sw_align_x", "sw_tb_rows")):
+        if not name.startswith(("sw_align", "sw_tb_rows")):
             continue
         ins = [(int(a, 16), t) for a, t in re.findall(
             r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)]
@@ -167,6 +192,14 @@ def sass_rows(lib):
             {op: len(re.findall(rf"\b{op}\b", part))
              for op in ("VIMNMX3", "VIADDMNMX")},
             row_loop=(back[0][0] - back[0][1]) // 16 + 1 if back else None)
+        if back and name.endswith(",8,15>"):     # the main-path instances
+            loops.append(f"== {name}\n" + "\n".join(
+                f"{a:05x} {t.strip()}" for a, t in ins
+                if back[0][1] <= a <= back[0][0]))
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "sass_row_loops.txt"),
+              "w") as f:
+        f.write("\n".join(loops) + "\n")
     return out
 
 
@@ -209,17 +242,20 @@ def mk_lanes(rng, B, N, M, lo, hi, raw=False):
     rlens[7:14] = 1
     if not raw:
         return code[refs], blens, code[reads], rlens
-    iupac = np.frombuffer(b"RYKMSWBDHVrykmswbdhv", np.uint8)
-
-    def spice(x):
-        x = np.where(rng.random(x.shape) < 0.05, x | 0x20, x)
-        x = np.where(rng.random(x.shape) < 0.01,
-                     iupac[rng.integers(0, len(iupac), x.shape)], x)
-        return np.where(rng.random(x.shape) < 0.005, ord("n"),
-                        x).astype(np.uint8)
     rlens[:7] = 1
-    return spice(refs.astype(np.uint8)), blens, \
-        spice(reads.astype(np.uint8)), rlens
+    return spice(rng, refs.astype(np.uint8)), blens, \
+        spice(rng, reads.astype(np.uint8)), rlens
+
+
+def spice(rng, x):
+    """Raw bytes with 5% made lowercase, 1% IUPAC letters and 0.5% n."""
+    import numpy as np
+    iupac = np.frombuffer(b"RYKMSWBDHVrykmswbdhv", np.uint8)
+    x = np.where(rng.random(x.shape) < 0.05, x | 0x20, x)
+    x = np.where(rng.random(x.shape) < 0.01,
+                 iupac[rng.integers(0, len(iupac), x.shape)], x)
+    return np.where(rng.random(x.shape) < 0.005, ord("n"),
+                    x).astype(np.uint8)
 
 
 def edge_marks(M, cols):
@@ -267,6 +303,48 @@ def k1_edge_lanes(rng, B, N, M, cols):
             n += 1
     if n + 2 <= B:
         blens[n], blens[n + 1] = N + 5, -3
+    return refs, blens, reads, rlens
+
+
+# (reference byte, read byte) pairs k3_edge_lanes places at segment
+# boundaries: bisulfite C/T pairs (and T/C, which never matches), N and
+# n on either side, lowercase against upper case, IUPAC letters; None
+# keeps the lane's base
+RAW_PAIRS = ((b"C", b"T"), (b"c", b"t"), (b"C", b"t"), (b"c", b"T"),
+             (b"T", b"C"), (b"N", None), (b"n", None), (None, b"N"),
+             (None, b"n"), (b"a", b"a"), (b"A", b"a"), (b"R", b"R"),
+             (b"R", b"A"), (b"y", b"Y"))
+
+
+def k3_edge_lanes(rng, B, N, M, cols):
+    """K3's edge cases on raw bytes: the lanes of k1_edge_lanes in
+    letters (xcode 4 as N), each edge lane with pairs of RAW_PAIRS at
+    about half of the read columns k*C - 1, k*C and k*C + 1 of each C in
+    ``cols`` (the segment boundaries of a thread group), the reference
+    byte at the window row of the same index (on the diagonal of the
+    lanes whose read equals its window); the random mix after them
+    spiced as mk_lanes(raw=True) spices it; blen past N, below 0 and 0
+    on the three lanes after the edge lanes."""
+    import numpy as np
+    refs, blens, reads, rlens = k1_edge_lanes(rng, B, N, M, cols)
+    letters = np.frombuffer(b"ACGTN", np.uint8)
+    refs, reads = letters[refs], letters[reads]
+    n_edge = min(B, 3 * len(edge_marks(M, cols)))
+    bounds = sorted({j for C in cols for k in range(1, M // C + 2)
+                     for j in (k * C - 1, k * C, k * C + 1) if 1 <= j <= M})
+    for n in range(n_edge):
+        for j in bounds:
+            if rng.random() < 0.5:
+                continue
+            ref_b, read_b = RAW_PAIRS[rng.integers(0, len(RAW_PAIRS))]
+            if read_b is not None:
+                reads[n, j - 1] = read_b[0]
+            if ref_b is not None and j <= N:
+                refs[n, j - 1] = ref_b[0]
+    refs[n_edge:] = spice(rng, refs[n_edge:])
+    reads[n_edge:] = spice(rng, reads[n_edge:])
+    if n_edge + 3 <= B:         # k1_edge_lanes set the first two
+        blens[n_edge + 2] = 0
     return refs, blens, reads, rlens
 
 
@@ -448,8 +526,11 @@ def kernel_check():
     res["sw_align_x"].update(k1_groups(main_x))
     res["sw_tb_rows"].update(k2_groups(main_tb))
 
-    # K3 on raw bytes; the last case is the v1 main-path shape (both
-    # ends' slots: H_CAP = 2 x 8192 lanes, N = 160, M = 112, all rows)
+    # K3 on raw bytes, with the main path's group size and each forced
+    # one that takes the width; the last case is the v1 main-path shape
+    # (both ends' slots: H_CAP = 2 x 8192 lanes, N = 160, M = 112, all
+    # rows)
+    lib = sw_cuda.load_kernels()
     cases3 = [(2048, 64, 48, 17, 41, 64), (2048, 64, 48, 17, 41, 50),
               (2048, 96, 80, 30, 73, 96), (16384, 160, 112, 90, 101, 160)]
     for ci, (B, N, M, lo, hi, nr) in enumerate(cases3):
@@ -464,10 +545,16 @@ def kernel_check():
                                     n_rows=nr)
             torch.cuda.synchronize()
             e3 = _max_abs_err(k3, p3)
+            for g in (8, 16, 32):
+                if lib.sw_lane_cols(M, g):
+                    e3 = max(e3, _max_abs_err(sw_cuda.sw_align(
+                        refs, bl, reads, rl, bisulfite=bis, n_rows=nr,
+                        group=g), p3))
             if e3:
                 raise AssertionError(f"K3 != plain at B={B} N={N} M={M} "
                                      f"n_rows={nr} bisulfite={bis}: {e3}")
             if ci == len(cases3) - 1 and not bis:
+                main3 = (refs, bl, reads, rl, nr)
                 cells3 = int((torch.clamp(bl, 0, nr).long()
                               * rl.clamp(0, M).long()).sum())
                 res["sw_align"] = dict(
@@ -487,10 +574,10 @@ def kernel_check():
                                                    k3[1], k3[2])]
                 res["sw_align"]["eager_traceback_ms"] = _timed(
                     lambda: sw.sw_traceback_device(*tb, n_rows=nr), 2)
+    res["sw_align"].update(k3_groups(main3))
     n_cases = 2 * (len(cases) + len(cases3))
     say("kernel_check", bitwise=True,
-        cases=n_cases + res["sw_align_x"]["edge_cases"]
-        + res["sw_tb_rows"]["edge_cases"],
+        cases=n_cases + sum(res[k]["edge_cases"] for k in res),
         **{k: {kk: (round(vv, 4) if isinstance(vv, float) else vv)
                for kk, vv in v.items()} for k, v in res.items()})
     return res
@@ -545,9 +632,9 @@ def k1_groups(main_x):
 def k2_groups(main_tb):
     """K2 with each group size that takes the width, against the plain
     version: on the main-path winners (timed per group size, with the
-    cube's bytes per launch; and with n_rows = 0) and on the edge lanes of k2_edge_lanes at
-    100 bp (M 112) and 250 bp (M 256) widths, with B = 1001 and two
-    B = 1 slices (a forced start and an edge lane)."""
+    cube's bytes per launch; and with n_rows = 0) and on the edge lanes
+    of k2_edge_lanes at 100 bp (M 112) and 250 bp (M 256) widths, with
+    B = 1001 and two B = 1 slices (a forced start and an edge lane)."""
     import numpy as np
     import torch
     from pecaller_tpu_torch.ops import sw2, sw_cuda
@@ -597,6 +684,57 @@ def k2_groups(main_tb):
                         raise AssertionError(
                             f"K2 group {g} != plain on edge lanes: M={M} "
                             f"B={len(sub[0])} bisulfite={bis}: {e}")
+                    n += 1
+    return dict(out, edge_cases=n)
+
+
+def k3_groups(main3):
+    """K3 with each group size that takes the width (checked on the
+    main-path mix by kernel_check), against the plain version: on that
+    mix with n_rows = 0, timed per group size there, and on the edge
+    lanes of k3_edge_lanes at 100 bp (M 112, N 160) and 250 bp (M 256,
+    N 288) widths, with all rows and with n_rows < N, with B = 1001 and
+    two B = 1 slices, both modes."""
+    import numpy as np
+    import torch
+    from pecaller_tpu_torch.ops import sw, sw_cuda
+    dev = torch.device("cuda", 0)
+    lib = sw_cuda.load_kernels()
+    refs, bl, reads, rl, nr = main3
+    M = reads.shape[1]
+    out = dict(group=lib.sw_lane_group(M), group_cols={}, group_ms={})
+    p0 = sw.sw_align_device(refs, bl, reads, rl, n_rows=0)  # no rows
+    for g in (8, 16, 32):
+        if not lib.sw_lane_cols(M, g):
+            continue
+        e0 = _max_abs_err(sw_cuda.sw_align(refs, bl, reads, rl, n_rows=0,
+                                           group=g), p0)
+        if e0:
+            raise AssertionError(f"K3 group {g} != plain on the main mix "
+                                 f"with n_rows 0: {e0}")
+        out["group_cols"][g] = lib.sw_lane_cols(M, g)
+        out["group_ms"][g] = _timed(lambda: sw_cuda.sw_align(
+            refs, bl, reads, rl, n_rows=nr, group=g), 5)
+    n = 0
+    for M, N, rows in ((112, 160, (160, 121)), (256, 288, (288, 270))):
+        groups = [g for g in (8, 16, 32) if lib.sw_lane_cols(M, g)]
+        cols = [lib.sw_lane_cols(M, g) for g in groups]
+        for bis in (False, True):
+            lanes = [torch.from_numpy(x).to(dev) for x in k3_edge_lanes(
+                np.random.default_rng(1100 + M + bis), 1001, N, M, cols)]
+            subs = (lanes, [x[-1:] for x in lanes], [x[1:2] for x in lanes])
+            for sub, nr in ((sub, nr) for sub in subs for nr in rows):
+                p = sw.sw_align_device(*sub, bisulfite=bis, n_rows=nr)
+                for g in groups:
+                    k = sw_cuda.sw_align(*sub, bisulfite=bis, n_rows=nr,
+                                         group=g)
+                    torch.cuda.synchronize()
+                    e = _max_abs_err(k, p)
+                    if e:
+                        raise AssertionError(
+                            f"K3 group {g} != plain on edge lanes: M={M} "
+                            f"B={len(sub[0])} n_rows={nr} bisulfite={bis}: "
+                            f"{e}")
                     n += 1
     return dict(out, edge_cases=n)
 

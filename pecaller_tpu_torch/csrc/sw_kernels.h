@@ -1,5 +1,6 @@
-// C interface of the Smith-Waterman kernels K1 and K2 (sw_align_x.cu,
-// sw_tb_rows.cu; their shared thread-group row in sw_group.cuh), loaded from Python with ctypes (ops/sw_cuda.py).
+// C interface of the Smith-Waterman kernels K1, K2 and K3
+// (sw_align_x.cu, sw_tb_rows.cu, sw_align.cu; their shared thread-group
+// row in sw_group.cuh), loaded from Python with ctypes (ops/sw_cuda.py).
 //
 // Every pointer is a device pointer of a contiguous tensor in the
 // (lanes, .) layout of ops/sw2.py; `stream` is a cudaStream_t.  The
@@ -22,7 +23,7 @@
 extern "C" {
 #endif
 
-// The instance table of K1 and K2 (sw_group.cuh): a launch with
+// The instance table of K1, K2 and K3 (sw_group.cuh): a launch with
 // `group` threads per lane (8, 16 or 32; 0 = sw_lane_group(M), the main
 // path's choice) gives each thread sw_lane_cols(M, group) columns (0: no
 // instance takes width M).
@@ -47,6 +48,13 @@ int sw_tb_rows_launch(const uint8_t* refs, const int32_t* blens,
                       uint8_t* cube, int8_t* ev_kind, int32_t* ins_j,
                       int32_t* ins_len, uint8_t* tie, int B, int N, int M,
                       int n_rows, int bisulfite, int group, void* stream);
+
+// K3, on raw bytes (refs, reads).
+int sw_align_launch(const uint8_t* refs, const int32_t* blens,
+                    const uint8_t* reads, const int32_t* rlens,
+                    int32_t* score, int32_t* bk, int32_t* bi, int B, int N,
+                    int M, int n_rows, int bisulfite, int group,
+                    void* stream);
 
 #ifdef __cplusplus
 }

@@ -157,7 +157,8 @@ __global__ void __launch_bounds__(SW_TB_THREADS, 1)
 
   // ---- phase 1: replay the DP, store the decision bytes of rows 1..rmax
   int S0[C], S1[C], S2[C], rd[C];
-  sw_group_init(S0, S1, S2, rd, reads + lane * M, live, j0, M);
+  sw_group_init<SwXMatch<BIS>>(S0, S1, S2, rd, reads + lane * M, live,
+                               j0, M);
   for (int i0 = 0; i0 < wmax; i0 += G) {
     const int ri = i0 + g;
     const int chunk = (live && ri < N) ? refs[lane * N + ri] : 0;
@@ -192,8 +193,8 @@ __global__ void __launch_bounds__(SW_TB_THREADS, 1)
       const unsigned stepping = __ballot_sync(SW_FULL, step);
       if (step) {
         int c0[C], c1[C], c2[C];
-        sw_group_row<BIS, G, C>(stepping, S0, S1, S2, rd, rb, g, j0, c0,
-                                c1, c2);
+        sw_group_row<SwXMatch<BIS>, G, C>(stepping, S0, S1, S2, rd, rb, g,
+                                          j0, c0, c1, c2);
 #pragma unroll
         for (int c = 0; c < C; ++c) {
           S0[c] = c0[c];

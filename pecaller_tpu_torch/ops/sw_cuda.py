@@ -33,7 +33,6 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_CSRC)), "build",
                          "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SMEM_LIMIT = 227 * 1024
 
 LAUNCHES = {"sw_align_x": 0, "sw_tb_rows": 0, "sw_align": 0}
 BUILD_INFO = {}          # nvcc seconds and ptxas report of the last build
@@ -109,9 +108,7 @@ def load_kernels() -> ctypes.CDLL:
     lib.sw_tb_rows_row_bytes.restype = ci
     lib.sw_tb_rows_launch.argtypes = [vp] * 11 + [ci] * 6 + [vp]
     lib.sw_tb_rows_launch.restype = ci
-    lib.sw_align_smem_bytes.argtypes = [ci, ci]
-    lib.sw_align_smem_bytes.restype = ci
-    lib.sw_align_launch.argtypes = [vp] * 7 + [ci] * 5 + [vp]
+    lib.sw_align_launch.argtypes = [vp] * 7 + [ci] * 6 + [vp]
     lib.sw_align_launch.restype = ci
     _LIB = lib
     return lib
@@ -129,10 +126,8 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_inputs(refs, blens, reads, rlens, n_rows, extra=(),
-                  smem_fn=None):
-    """Device, dtypes, shapes and contiguity; with ``smem_fn``, the read
-    width against the shared memory of a 32-lane block."""
+def _check_inputs(refs, blens, reads, rlens, n_rows, extra=()):
+    """Device, dtypes, shapes and contiguity."""
     dev = refs.device
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
@@ -146,11 +141,7 @@ def _check_inputs(refs, blens, reads, rlens, n_rows, extra=(),
         _check(name, x, torch.int32, (B,), dev)
     if not 0 <= n_rows <= N:
         raise ValueError(f"n_rows {n_rows} outside [0, {N}]")
-    lib = load_kernels()
-    if smem_fn is not None and getattr(lib, smem_fn)(M, 32) > SMEM_LIMIT:
-        raise ValueError(f"read width {M} needs more shared memory than "
-                         "a block has")
-    return lib, B, N, M
+    return load_kernels(), B, N, M
 
 
 def _stream(dev) -> ctypes.c_void_p:
@@ -227,15 +218,18 @@ def sw_traceback_rows(refs, blens, reads, rlens, bt_k, bt_i,
 
 
 def sw_align(refs, blens, reads, rlens, bisulfite: bool = False,
-             n_rows: int | None = None):
+             n_rows: int | None = None, group: int = 0):
     """K3.  Same contract as sw.sw_align_device: raw bytes in, (score,
-    k, i) int32, each (B,)."""
+    k, i) int32, each (B,).  ``group``: threads per lane on the card, as
+    for sw_align_x."""
     n_rows = refs.shape[1] if n_rows is None else n_rows
     if refs.device.type == "cpu":
         return sw.sw_align_device(refs, blens, reads, rlens,
                                   bisulfite=bisulfite, n_rows=n_rows)
-    lib, B, N, M = _check_inputs(refs, blens, reads, rlens, n_rows,
-                                 smem_fn="sw_align_smem_bytes")
+    lib, B, N, M = _check_inputs(refs, blens, reads, rlens, n_rows)
+    if lib.sw_lane_cols(M, group) == 0:
+        raise ValueError(f"no sw_align instance with {group} threads "
+                         f"per lane takes read width {M}")
     dev = refs.device
     score = torch.empty(B, dtype=torch.int32, device=dev)
     bk = torch.empty(B, dtype=torch.int32, device=dev)
@@ -243,7 +237,8 @@ def sw_align(refs, blens, reads, rlens, bisulfite: bool = False,
     with torch.cuda.device(dev):
         rc = lib.sw_align_launch(
             _p(refs), _p(blens), _p(reads), _p(rlens), _p(score), _p(bk),
-            _p(bi), B, N, M, n_rows, int(bool(bisulfite)), _stream(dev))
+            _p(bi), B, N, M, n_rows, int(bool(bisulfite)), group,
+            _stream(dev))
     if rc != 0:
         raise RuntimeError(f"sw_align launch failed: cudaError {rc}")
     LAUNCHES["sw_align"] += 1

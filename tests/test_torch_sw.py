@@ -158,3 +158,7 @@ def test_wrapper_rejects_bad_inputs_on_card(cuda_device):
                                   args[1], args[1])
     with pytest.raises(ValueError):                  # no such group size
         sw_cuda.sw_traceback_rows(*args, args[1], args[1], group=7)
+    with pytest.raises(ValueError):                  # past the widest K3
+        sw_cuda.sw_align(args[0], args[1], wide, args[3])
+    with pytest.raises(ValueError):                  # no such group size
+        sw_cuda.sw_align(*args, group=7)

@@ -1,7 +1,7 @@
 """Plain PyTorch SW ops of the v1 engine (pecaller_tpu_torch/ops/sw.py)
 against the JAX package's ops/sw.py and its Pallas kernel K3
 (sw_align_pallas) in interpret mode, and kernel K3 against the plain
-version where a card exists.
+version where a card exists, with each group size.
 
 Inputs are raw bytes: A/C/G/T/N, lowercase a/c/g/t/n and IUPAC letters
 in reads and windows, padding lanes (blen 0, rlen 1), n_rows < N.
@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from pecaller_tpu.ops import sw as jsw
 from pecaller_tpu.ops.sw_pallas import sw_align_pallas
 from pecaller_tpu_torch.ops import sw, sw_cuda
@@ -94,12 +95,33 @@ def test_wrapper_takes_plain_path_on_cpu():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mix", ["mixed", "edges-100bp", "edges-250bp"])
 @pytest.mark.parametrize("bis", [False, True])
-def test_k3_matches_plain_on_card(cuda_device, bis):
-    refs, bl, reads, rl = raw_lanes(51 + bis, 2048, 160, 112, 80, 101)
-    args = [x.to(cuda_device) for x in _t(refs, bl, reads, rl)]
-    for n_rows in (160, 121):
-        p = sw.sw_align_device(*args, bisulfite=bis, n_rows=n_rows)
-        k = sw_cuda.sw_align(*args, bisulfite=bis, n_rows=n_rows)
-        torch.cuda.synchronize()
-        assert all(torch.equal(x, y) for x, y in zip(p, k))
+def test_k3_matches_plain_on_card(cuda_device, bis, mix):
+    """K3 with each group size that takes the width (0: the main path's)
+    against the plain version: on the raw mix (2048 lanes x 160 x 112)
+    and on chip_smoke.k3_edge_lanes at 100 bp (M 112, N 160) and 250 bp
+    (M 256, N 288) widths with B = 1001; each also on two B = 1 slices,
+    with all rows, n_rows < N and n_rows 0."""
+    lib = sw_cuda.load_kernels()
+    if mix == "mixed":
+        M, N = 112, 160
+        lanes = raw_lanes(51 + bis, 2048, N, M, 80, 101)
+    else:
+        M, N = {"edges-100bp": (112, 160), "edges-250bp": (256, 288)}[mix]
+        cols = [c for c in (lib.sw_lane_cols(M, g) for g in (8, 16, 32))
+                if c]
+        lanes = chip_smoke.k3_edge_lanes(np.random.default_rng(53 + bis),
+                                         1001, N, M, cols)
+    args = [x.to(cuda_device) for x in _t(*lanes)]
+    for sub in (args, [x[-1:] for x in args], [x[1:2] for x in args]):
+        for n_rows in (N, N - 39, 0):
+            p = sw.sw_align_device(*sub, bisulfite=bis, n_rows=n_rows)
+            for group in (0, 8, 16, 32):
+                if not lib.sw_lane_cols(M, group):
+                    continue
+                k = sw_cuda.sw_align(*sub, bisulfite=bis, n_rows=n_rows,
+                                     group=group)
+                torch.cuda.synchronize()
+                assert all(torch.equal(x, y) for x, y in zip(p, k)), \
+                    (group, n_rows, len(sub[0]))

@@ -11,7 +11,11 @@ running max over each thread's columns, whose first element takes the
 neighbour's new c0 (a second shfl_up), combined with an exclusive
 max-scan of the segment maxima over the group in log2(G) shfl_up steps
 with identity NEG; the thread that owns column rlen keeps best / k / i /
-tie.  Tolerance: bitwise (integer DP)."""
+tie.  The match rule is an argument (Rule, the kernels' Match policy):
+K1 and K2 take the xcode rule, test_torch_k3_group K3's byte rule.
+Tolerance: bitwise (integer DP)."""
+
+from typing import Callable, NamedTuple
 
 import numpy as np
 import pytest
@@ -50,30 +54,52 @@ def shfl_up(x, d):
     return out
 
 
-def group_init(reads, G, C):
+def xcode_match(rb, rd, bisulfite):
+    """K1's and K2's match rule (sw_bump): reference codes rb against
+    read codes rd, broadcast."""
+    m = (rd == rb) | (rb == XN) | (rd == XN)
+    if bisulfite:
+        m |= (rb == 1) & (rd == 3)
+    return m
+
+
+class Rule(NamedTuple):
+    """A match rule of the kernels' row (the policy Match of
+    sw_group.cuh): code(reads, bisulfite) the read registers
+    (Match::code), ref(refs, bisulfite) a row's reference values, and
+    match(rb, rd, bisulfite) (Match::bump's test)."""
+    code: Callable
+    ref: Callable
+    match: Callable
+
+
+XCODES = Rule(lambda x, bis: x, lambda x, bis: x, xcode_match)
+
+
+def group_init(reads, G, C, code=None):
     """Row 0 of the three planes and the read codes, (B, G, C) each, and
-    the global column of each slot (G, C) (sw_group_init)."""
+    the global column of each slot (G, C) (sw_group_init); ``code`` maps
+    the read bytes to their registers (identity: xcodes)."""
     B, M = reads.shape
     assert G * C >= M + 1
-    j = np.arange(G * C, dtype=np.int64).reshape(G, C)
+    j = np.arange(G * C, dtype=np.int32).reshape(G, C)
     b = -(OPEN + (j - 1) * EXT)
     S0 = np.broadcast_to(np.where(j == 0, 0, b), (B, G, C)).copy()
     S1 = S0.copy()
     S2 = np.broadcast_to(np.where(j == 0, -OPEN, b), (B, G, C)).copy()
     inside = (j >= 1) & (j <= M)
-    rd = np.zeros((B, G, C), np.int64)
-    rd[:, inside] = reads[:, j[inside] - 1]
+    rd = np.zeros((B, G, C), np.int32)
+    x = reads[:, j[inside] - 1]
+    rd[:, inside] = x if code is None else code(x)
     return S0, S1, S2, rd, j
 
 
-def group_row(S0, S1, S2, rd, rb, j, bisulfite):
+def group_row(S0, S1, S2, rd, rb, j, bisulfite, match=xcode_match):
     """The new row (c0, c1, c2) of every lane's group (sw_group_row);
-    rb (B,) the row's reference codes."""
+    rb (B,) the row's reference values, ``match`` the rule."""
     G = j.shape[0]
-    rb = rb.astype(np.int64)[:, None, None]
-    m = (rd == rb) | (rb == XN) | (rd == XN)
-    if bisulfite:
-        m |= (rb == 1) & (rd == 3)
+    rb = rb.astype(np.int32)[:, None, None]
+    m = match(rb, rd, bisulfite)
     old3 = np.maximum(np.maximum(S0, S1), S2)
     p3 = np.concatenate([shfl_up(old3[:, :, -1], 1)[:, :, None],
                          old3[:, :, :-1]], axis=2)
@@ -96,10 +122,14 @@ def group_row(S0, S1, S2, rd, rb, j, bisulfite):
     return c0, c1, np.maximum(ex[:, :, None], run) - j
 
 
-def group_align(refs, blens, reads, rlens, G, C, bisulfite, n_rows):
+def group_align(refs, blens, reads, rlens, G, C, bisulfite, n_rows,
+                rule=XCODES):
+    """The kernel's results (score, k, i, tie) from the group model:
+    K1's under XCODES; K3 returns the first three under its byte rule."""
     B = refs.shape[0]
     M = reads.shape[1]
-    S0, S1, S2, rd, j = group_init(reads, G, C)
+    S0, S1, S2, rd, j = group_init(reads, G, C,
+                                   lambda x: rule.code(x, bisulfite))
     rlens = rlens.astype(np.int64)
     rows = np.clip(np.minimum(n_rows, blens.astype(np.int64)), 0, None)
     in_range = (rlens >= 0) & (rlens <= M)
@@ -111,7 +141,9 @@ def group_align(refs, blens, reads, rlens, G, C, bisulfite, n_rows):
     bi = np.zeros(B, np.int64)
     n_at = np.ones(B, np.int64)
     for i in range(1, int(rows[in_range].max(initial=0)) + 1):
-        S0, S1, S2 = group_row(S0, S1, S2, rd, refs[:, i - 1], j, bisulfite)
+        S0, S1, S2 = group_row(S0, S1, S2, rd,
+                               rule.ref(refs[:, i - 1], bisulfite), j,
+                               bisulfite, rule.match)
         active = in_range & (i <= rows)
         for k, P in enumerate((S0, S1, S2)):
             v = P[lanes, g_own, c_own]
