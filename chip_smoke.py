@@ -36,10 +36,33 @@ Phases (each prints one line; any failure raises and exits non-zero):
      length) multiset of insertion records, K3 launched twice per
      batch; reads/s, the eager traceback's time, fallbacks, peak device
      memory
+  6. v2.5 path: bench.py's mid-size data (one 47 Mb contig "chr21x",
+     seed 2025, 50k 100 bp pairs), made once under .smoke/mid/; the
+     exact-key index build, the quartered-key index build (cached as
+     .q4x parts) and its upload, each timed; `pemapper --device` in
+     8192-pair batches through the port's command line, where the
+     runner must pick the quartered-key index (the nbr index refuses
+     the genome up front), against the host oracle: all five artifacts
+     byte-equal, K1 and K2 launched; reads/s (median of 3 passes after a
+     warm pass), fallbacks, re-walked ties, units the probe's caps sent
+     to the host, peak device memory
+  7. split path: the split engine (DeviceMapperEngine: SW scores by K3,
+     eager traceback and 2-byte pileup counters on the card) on phase
+     6's data, as the runner builds it at 2^30 bases and more (host
+     seeds), and once with device seeds: phase 5's gate against phase
+     6's host oracle, K3 launched twice per batch; K3 at the engine's
+     shape (kernel, plain and bound), the seed step's and the eager
+     traceback's host seconds per batch, reads/s over the gate run's
+     batches, peak device memory
+  7b. human-scale counters: the split engine's (3.1e9, 6) int16 pileup
+     (37.2 GB) on the card, pileup_scatter with sw_traceback_scatter's
+     event layout at positions on both sides of 2^30 and 2^31 and in the
+     genome's last window, one cell pushed past 65,535; the touched rows
+     equal np.add.at on uint16
 
-Then a JSON line of the kernels, and last the result line
-{"ok": true, "device": {...}}.  With --kernels: phases 1-3, the kernels
-line with launches null, and no result line.  Needs no network and
+Then a JSON line of the kernels (launches summed over phases 4-7), and
+last the result line {"ok": true, "device": {...}}.  With --kernels:
+phases 1-3, the kernels line with launches null, and no result line.  Needs no network and
 starts no process that outlives it.  The script and the port import
 nothing of jax nor of the JAX package pecaller_tpu; the run fails if
 either entered sys.modules.
@@ -60,6 +83,10 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, ".smoke")
 GENOME_LEN = 4_600_000
+MID = os.path.join(DATA, "mid")
+MID_LEN = 47_000_000                 # bench.py bench_mid: human chr21 scale
+MID_PAIRS = 50_000
+HUMAN_LEN = 3_100_000_000            # hg38 scale, for phase 7b
 BATCH = 8192
 N_ROWS = 125                       # R_ROWS of 100 bp reads: 104 + 2*10 + 1
 # H100 SXM rates used for the bounds (NVIDIA data sheet; 700 W): HBM
@@ -824,37 +851,45 @@ def write_fastq(path, reads, which=0):
             f.write(f"@read{i}\n{s}\n+\n{'I' * len(s)}\n")
 
 
-def make_data(n_pairs):
-    """Genome, index and reads under .smoke/ (made once, bench.py's
-    E. coli configuration)."""
+def make_data(n_pairs, data=DATA, length=GENOME_LEN, name="ecoli",
+              seed=2024):
+    """Genome, index and reads under ``data`` (made once; bench.py's
+    E. coli configuration, or with phase 6's arguments its mid-size
+    one).  Returns the seconds of the data and of the index build, or
+    None where they were already made."""
     import numpy as np
     from pecaller_tpu_torch.index import build_index
-    tag = os.path.join(DATA, f"ready_{n_pairs}")
+    tag = os.path.join(data, f"ready_{n_pairs}")
     if os.path.exists(tag):
-        return
-    shutil.rmtree(DATA, ignore_errors=True)
-    os.makedirs(DATA)
-    rng = np.random.default_rng(2024)
-    names, seqs = make_genome(rng, [GENOME_LEN], names=["ecoli"])
-    fa = os.path.join(DATA, "genome.fa")
+        return None
+    os.makedirs(data, exist_ok=True)
+    for f in os.listdir(data):
+        if f.startswith("ready_"):
+            os.remove(os.path.join(data, f))
+    t0 = time.time()
+    rng = np.random.default_rng(seed)
+    names, seqs = make_genome(rng, [length], names=[name])
+    fa = os.path.join(data, "genome.fa")
     write_fasta(fa, names, seqs)
     reads = sample_reads(rng, names, seqs, n_pairs, read_len=100,
                          err_rate=0.005, paired=True, insert_lo=150,
                          insert_hi=450, indel_rate=0.02, max_indel=4)
-    write_fastq(os.path.join(DATA, "r1.fastq"), reads, which=0)
-    write_fastq(os.path.join(DATA, "r2.fastq"), reads, which=1)
-    build_index(fa, os.path.join(DATA, "g"), write_idx=False)
+    write_fastq(os.path.join(data, "r1.fastq"), reads, which=0)
+    write_fastq(os.path.join(data, "r2.fastq"), reads, which=1)
+    t1 = time.time()
+    build_index(fa, os.path.join(data, "g"), write_idx=False)
     open(tag, "w").close()
+    return t1 - t0, time.time() - t1
 
 
-def _run_dir(name):
+def _run_dir(name, data=DATA):
     """A directory of links to the reads: each run writes
     <fastq>.mfile beside its inputs."""
-    d = os.path.join(DATA, name)
+    d = os.path.join(data, name)
     shutil.rmtree(d, ignore_errors=True)
     os.makedirs(d)
     for r in ("r1.fastq", "r2.fastq"):
-        os.symlink(os.path.join(DATA, r), os.path.join(d, r))
+        os.symlink(os.path.join(data, r), os.path.join(d, r))
     return d
 
 
@@ -869,19 +904,19 @@ def _artifacts(d):
     return out
 
 
-def _argv(d, n_pairs, device):
+def _argv(d, n_pairs, device, data=DATA):
     threads = str(os.cpu_count() or 2)
-    argv = [os.path.join(d, "out"), os.path.join(DATA, "g.sdx"), "p",
+    argv = [os.path.join(d, "out"), os.path.join(data, "g.sdx"), "p",
             os.path.join(d, "r1.fastq"), os.path.join(d, "r2.fastq"),
             "500", "0", "n", "0.9", threads, str(n_pairs),
             "--batch-size", str(BATCH)]
     return argv + (["--device"] if device else [])
 
 
-def _batches(n_pairs):
+def _batches(n_pairs, data=DATA):
     from pecaller_tpu_torch.formats.fastq import FastqBatcher
-    return list(FastqBatcher(os.path.join(DATA, "r1.fastq"),
-                             os.path.join(DATA, "r2.fastq"),
+    return list(FastqBatcher(os.path.join(data, "r1.fastq"),
+                             os.path.join(data, "r2.fastq"),
                              batch_size=BATCH, max_reads=n_pairs).batches())
 
 
@@ -1091,6 +1126,293 @@ def v1_path(n_pairs, host):
     return launches
 
 
+def mid_path(n_pairs):
+    """Phase 6: the v2.5 path (v2 step on the quartered-key index) at the
+    bench's mid size, through the port's command line.  Returns K1/K2
+    launches and the host oracle's engine (phase 7's reference)."""
+    import torch
+    from pecaller_tpu_torch import cli
+    from pecaller_tpu_torch.formats.index_files import load_index
+    from pecaller_tpu_torch.index.quarter import load_quarter_index
+    from pecaller_tpu_torch.mapper.device_map2 import QuarterDeviceIndex
+    from pecaller_tpu_torch.mapper.runner import run_mapper
+    from pecaller_tpu_torch.ops import sw_cuda
+
+    made = make_data(n_pairs, data=MID, length=MID_LEN, name="chr21x",
+                     seed=2025)
+    base = os.path.join(MID, "g")
+    t0 = time.time()
+    qi = load_quarter_index(base, load_index(base))  # build + cache .q4x
+    t_quarter = time.time() - t0
+    dev = torch.device("cuda", 0)
+    torch.cuda.synchronize(dev)
+    t0 = time.time()
+    dq = QuarterDeviceIndex(qi, dev)
+    torch.cuda.synchronize(dev)
+    t_upload = time.time() - t0
+    q_bytes = sum(a.numel() * a.element_size() for a in dq.args)
+    del dq, qi
+    torch.cuda.empty_cache()
+
+    dev_dir = _run_dir("device", MID)
+    torch.cuda.reset_peak_memory_stats(dev)
+    sw_cuda.reset_launches()
+    t0 = time.time()
+    eng = run_mapper(cli.parse_pemapper(_argv(dev_dir, n_pairs, True,
+                                              MID)))
+    torch.cuda.synchronize(dev)
+    t_dev = time.time() - t0
+    launches = dict(sw_cuda.LAUNCHES)
+    if getattr(eng.state.dnbr, "mode", None) != "quarter":
+        raise AssertionError(f"the runner took {type(eng).__name__}, not "
+                             "the v2 engine on the quartered-key index")
+    if not (launches["sw_align_x"] and launches["sw_tb_rows"]):
+        raise AssertionError(f"a kernel of the path never ran: {launches}")
+    n_fallback, n_tiefix = eng.n_fallback, eng.n_tiefix
+    n_cap = eng.n_cap_fallback
+
+    host_dir = _run_dir("host", MID)
+    t0 = time.time()
+    host = run_mapper(cli.parse_pemapper(_argv(host_dir, n_pairs, False,
+                                               MID)))
+    t_host = time.time() - t0
+    got, want = _artifacts(dev_dir), _artifacts(host_dir)
+    diff = [k for k in want if got[k] != want[k]]
+    if diff:
+        raise AssertionError(f"v2.5 artifacts differ from the host "
+                             f"oracle's: {diff}")
+    if want["out.summary.txt"].count(b"\n") < 5 or not want[".pileup.gz"]:
+        raise AssertionError("host oracle wrote empty artifacts")
+
+    rates, how, per_batch = _rates(eng, _batches(n_pairs, MID), dev)
+    say("mid_path", genome=MID_LEN, pairs=n_pairs, batch=BATCH,
+        index="quarter", byte_equal=sorted(want), launches=launches,
+        reads_per_s=rates[len(rates) // 2], reads_per_s_passes=rates,
+        passes=how, host_s_per_batch=per_batch, n_fallback=n_fallback,
+        n_tiefix=n_tiefix, n_cap_fallback=n_cap, quarter_bytes=q_bytes,
+        max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+        seconds=dict(data=made and round(made[0], 1),
+                     exact_index=made and round(made[1], 1),
+                     quarter_index=round(t_quarter, 1),
+                     upload=round(t_upload, 3), device_run=round(t_dev, 1),
+                     host_run=round(t_host, 1)))
+    del eng
+    torch.cuda.empty_cache()
+    return launches, host
+
+
+def split_path(n_pairs, host):
+    """Phase 7: the split engine on phase 6's data, with host seeds (the
+    runner's configuration at 2^30 bases and more) and with device
+    seeds, each gated as v1 against phase 6's host oracle.  Returns K3's
+    launches summed over both runs."""
+    import torch
+    from pecaller_tpu_torch import cli
+    from pecaller_tpu_torch.formats.index_files import load_index
+    from pecaller_tpu_torch.formats.sdx import read_sdx, read_seq
+    from pecaller_tpu_torch.mapper.device_engine import DeviceMapperEngine
+    from pecaller_tpu_torch.mapper.runner import map_files
+    from pecaller_tpu_torch.ops import sw, sw_cuda
+
+    dev = torch.device("cuda", 0)
+    sdx = read_sdx(os.path.join(MID, "g.sdx"))
+    genome = read_seq(os.path.join(MID, "g.seq"), sdx.genome_size)
+    index = load_index(os.path.join(MID, "g"))
+    batches = _batches(n_pairs, MID)
+    p_host = host.final_pileup()
+    ins_h = sorted((k, len(s)) for k, _, s in host.ins_records)
+    want = _artifacts(os.path.join(MID, "host"))
+    k3_launches = 0
+    align, scatter = sw_cuda.sw_align, sw.sw_traceback_scatter
+    for seeds in ("host", "device"):
+        d = _run_dir(f"split_{seeds}", MID)
+        cfg = cli.parse_pemapper(_argv(d, n_pairs, True, MID))
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.time()
+        eng = DeviceMapperEngine(
+            sdx, genome, index, device=dev, device_seeds=seeds == "device",
+            bisulfite=cfg.bisulfite, min_align=cfg.min_align,
+            min_dist=cfg.min_dist, max_dist=cfg.max_dist,
+            paired=cfg.paired, nthreads=cfg.nthreads)
+        t_build = time.time() - t0
+        # the engine's largest K3 call; host seconds of the traceback, of
+        # the seed step and of whole batches
+        seen, tb_s, seed_s, batch_s = {}, [], [], []
+
+        def k3(refs, *a, **k):
+            if refs.shape[0] >= seen.get("lanes", 0):
+                seen.update(lanes=refs.shape[0], args=(refs, *a), kw=k)
+            return align(refs, *a, **k)
+
+        def tb(*a, **k):
+            torch.cuda.synchronize(dev)
+            t = time.time()
+            out = scatter(*a, **k)
+            torch.cuda.synchronize(dev)
+            tb_s.append(time.time() - t)
+            return out
+        def timer(fn, acc):
+            def run(*a, **k):
+                t = time.time()
+                out = fn(*a, **k)
+                acc.append(time.time() - t)
+                return out
+            return run
+        eng.map_batch = timer(eng.map_batch, batch_s)
+        # the seed step: the host seeder, or the device step's enqueue
+        # and its wait (both ends are enqueued before the first wait)
+        for name in (("_initial_map",) if seeds == "host" else
+                     ("_initial_map_dispatch", "_initial_map_resolve")):
+            setattr(eng, name, timer(getattr(eng, name), seed_s))
+        sw_cuda.sw_align, sw.sw_traceback_scatter = k3, tb
+        try:
+            sw_cuda.reset_launches()
+            t0 = time.time()
+            map_files(cfg, eng, sdx, genome)
+            torch.cuda.synchronize(dev)
+            t_run = time.time() - t0
+            launches = dict(sw_cuda.LAUNCHES)
+        finally:
+            sw_cuda.sw_align, sw.sw_traceback_scatter = align, scatter
+        if launches["sw_align"] != 2 * len(batches):
+            raise AssertionError(f"K3 launched {launches['sw_align']} "
+                                 f"times for {len(batches)} batches")
+        k3_launches += launches["sw_align"]
+        got = _artifacts(d)
+        diff = [k for k in ("out.summary.txt", "r1.fastq.mfile",
+                            "r2.fastq.mfile") if got[k] != want[k]]
+        if diff:
+            raise AssertionError(f"split ({seeds} seeds) artifacts differ "
+                                 f"from the host oracle's: {diff}")
+        n_tie_rows, rotated = tie_local_pileup(p_host, eng.final_pileup())
+        ins_s = sorted((k, len(s)) for k, _, s in eng.ins_records)
+        if ins_s != ins_h:
+            raise AssertionError(f"split ({seeds} seeds) insertion records "
+                                 "differ from the host oracle's (read, "
+                                 "length) multiset")
+        n_fallback = eng.n_fallback
+
+        # K3 at the engine's shape: kernel against plain, bitwise, timed
+        args, kw = seen["args"], seen["kw"]
+        refs, bl, reads, rl = args
+        nr = kw["n_rows"]
+        kk = align(*args, **kw)
+        pp = sw.sw_align_device(*args, **kw)
+        err = _max_abs_err(kk, pp)
+        if err:
+            raise AssertionError(f"K3 != plain at the split engine's shape "
+                                 f"{tuple(refs.shape)} x {reads.shape[1]}")
+        cells = int((torch.clamp(bl, 0, nr).long()
+                     * rl.clamp(0, reads.shape[1]).long()).sum())
+        k3_at = dict(
+            shape=[refs.shape[0], refs.shape[1], reads.shape[1], nr],
+            group=sw_cuda.load_kernels().sw_lane_group(reads.shape[1]),
+            cols=sw_cuda.load_kernels().sw_lane_cols(reads.shape[1], 0),
+            max_abs_err=err, ms=_timed(lambda: align(*args, **kw), 5),
+            plain_ms=_timed(lambda: sw.sw_align_device(*args, **kw), 2),
+            bound=bound_ms("sw_align", cells, sum(
+                x.numel() * x.element_size() for x in args),
+                sum(x.numel() * x.element_size() for x in kk)))
+
+        # map_batch returns the batch's result on the host, so its
+        # seconds are the batch's; the first batch is timed too (the
+        # kernels were built and loaded in phase 3)
+        rate = 2 * sum(len(b[1]) for b in batches) / sum(batch_s)
+        say("split_path", seeds=seeds, genome=MID_LEN, pairs=n_pairs,
+            batch=BATCH,
+            byte_equal=["out.summary.txt", "r1.fastq.mfile",
+                        "r2.fastq.mfile"]
+            + ([".pileup.gz"] if got[".pileup.gz"] == want[".pileup.gz"]
+               else []),
+            pileup_rows_tie_shifted=n_tie_rows,
+            tie_rotated_insertion_clusters=rotated, insertions=len(ins_s),
+            launches=launches, batches=len(batches), k3=k3_at,
+            traceback_s_per_batch=sum(tb_s) / len(batches),
+            traceback_calls=len(tb_s),
+            seed_s_per_batch=sum(seed_s) / len(batches),
+            batch_s=batch_s, reads_per_s=rate,
+            passes="the gate run's batches (map_batch seconds)",
+            n_fallback=n_fallback,
+            max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+            seconds=dict(engine_build=round(t_build, 1),
+                         device_run=round(t_run, 1)))
+        del eng, seen, kk, pp
+        torch.cuda.empty_cache()
+    return k3_launches
+
+
+def human_counts(gs=HUMAN_LEN, edges=(2 ** 30, 2 ** 31)):
+    """Phase 7b: the split engine's pileup counters at hg38 scale, 2
+    bytes a cell, on the card; pileup_scatter with sw_traceback_scatter's
+    event layout (lanes of window rows from an int64 start) at starts on
+    both sides of 2^30 and 2^31 and in the genome's last window (rows
+    past its end dropped), one cell pushed past 65,535; the touched rows
+    against np.add.at on uint16."""
+    import numpy as np
+    import torch
+    from pecaller_tpu_torch.ops import sw
+    dev = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    counts = torch.zeros((gs, 6), dtype=torch.int16, device=dev)
+    torch.cuda.synchronize(dev)
+    t_alloc = time.time() - t0
+    rng = np.random.default_rng(7)
+    T = 250                                   # walk steps of a 128-row lane
+    e30, e31 = edges
+    starts = np.array([e30 - 130, e30 - 1, e30, e31 - 130, e31 - 1, e31,
+                       gs - 121, gs - 60, gs - 1, 5, 2 ** 32 + 17], np.int64)
+    starts = np.concatenate([starts, rng.integers(0, gs - 130, 53)])
+    B = len(starts)
+    rows = np.where(rng.random((B, T)) < 0.6,
+                    np.minimum(np.arange(T) // 2, 127)[None, :], -1)
+    kind = rng.integers(0, 6, (B, T)).astype(np.int8)
+    ins = (rng.random((B, T)) < 0.05) & (rows >= 0)
+    ev_abs = np.where(rows >= 0, rows + starts[:, None], -1).reshape(-1)
+    kind, ins = kind.reshape(-1), ins.reshape(-1)
+    # one cell near the wrap, then 9 more events on it
+    hot = e31 + 3
+    counts[hot, 2] = 65530 - 65536
+    ev_abs = np.concatenate([ev_abs, np.full(9, hot)])
+    kind = np.concatenate([kind, np.full(9, 2, np.int8)])
+    ins = np.concatenate([ins, np.zeros(9, bool)])
+    t0 = time.time()
+    sw.pileup_scatter(*(torch.from_numpy(x).to(dev) for x in (ev_abs, kind,
+                                                              ins)), counts)
+    torch.cuda.synchronize(dev)
+    t_scatter = time.time() - t0
+
+    inb = (ev_abs >= 0) & (ev_abs < gs)
+    touched = np.unique(np.concatenate([ev_abs[inb], [hot]]))
+    want = np.zeros((len(touched), 6), np.uint16)
+    want[np.searchsorted(touched, hot), 2] = 65530
+    r = np.searchsorted(touched, ev_abs[inb])
+    k = kind[inb].astype(np.int64)
+    np.add.at(want, (r[k < 5], k[k < 5]), np.uint16(1))
+    np.add.at(want, (r[ins[inb]], 5), np.uint16(1))
+    got = counts[torch.from_numpy(touched).to(dev)].cpu().numpy().view(
+        np.uint16)
+    if not np.array_equal(got, want):
+        bad = np.nonzero((got != want).any(axis=1))[0]
+        raise AssertionError(f"{len(bad)} touched rows differ from np.add.at,"
+                             f" first at {int(touched[bad[0]])}")
+    # nothing else changed: the card's nonzero cells, counted in slices
+    nz = sum(int(torch.count_nonzero(counts[i:i + (1 << 28)]))
+             for i in range(0, gs, 1 << 28))
+    if nz != int(np.count_nonzero(want)):
+        raise AssertionError("counts outside the touched rows changed")
+    say("human_counts", genome=gs, shape=[gs, 6], dtype="int16",
+        counts_bytes=counts.numel() * counts.element_size(),
+        events=int(inb.sum()), rows_touched=len(touched),
+        past_2_31=int((touched >= e31).sum()),
+        wrapped=int(got[np.searchsorted(touched, hot), 2]),
+        max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+        seconds=dict(alloc=round(t_alloc, 3), scatter=round(t_scatter, 3)))
+    del counts
+    torch.cuda.empty_cache()
+
+
 def profile_v1(n_pairs, n_batches=2):
     """--profile: torch.profiler over v1 batches after a warm one, no
     comparisons.  Prints host and device ms per batch of each step stage
@@ -1203,7 +1525,14 @@ def main():
         launches = dict.fromkeys(REPLACES)
     else:
         launches, host = main_path(args.pairs)
-        launches.update(sw_align=v1_path(args.pairs, host)["sw_align"])
+        launches["sw_align"] += v1_path(args.pairs, host)["sw_align"]
+        del host
+        mid, host = mid_path(MID_PAIRS)
+        for k in launches:
+            launches[k] += mid[k]
+        launches["sw_align"] += split_path(MID_PAIRS, host)
+        del host
+        human_counts()
     entered = sorted(_foreign_modules() - before)
     if entered:
         raise AssertionError(f"the run imported {entered[:5]}")

@@ -1,33 +1,175 @@
-"""Size checks of the quartered-key seed index.
+"""Quartered-key inverted seed index ("v2.5"): the mid-genome device
+seed path.
 
-The port has no quartered-key index yet (ROADMAP queue 1, item 6).  The
-runner still needs to know whether ``pecaller_tpu/index/quarter.py``
-``build_quarter_index`` would take a genome: where it would, the JAX
-runner maps with the v2 engine on that index; where it refuses, with the
-fused v1 engine.  ``quarter_refuses`` answers that from the exact-key
-index alone, without building anything.
+Counterpart of ``pecaller_tpu/index/quarter.py`` (the 4-projection
+index; its octile variant is not part of the port).  The nbr index
+(``index/nbr.py``) closes every key under one mismatch and so holds 49
+entries a position, which caps it at ~30 Mb of genome.  This index
+holds exactly 4: the pigeonhole split of the 16-mer into four 4-base
+quarters.  A single substitution lies in exactly one quarter, so
+probing the four "drop one quarter" projections enumerates precisely
+the reference's Hamming<=1 candidate set (fill_mers,
+pemapper.c:1969-2003): each candidate lands in exactly one projection
+(the one that dropped its mismatching quarter; exact matches are
+claimed by projection 0 only).
+
+Layout (device-resident, gathered by the fused step's quarter probe):
+
+  starts  uint32 (4*2^24 + 1)  entry offset of sub-run (q<<24 | sub24)
+  cnts    uint8  (4*2^24)      run length saturated at 255
+  pos     int32  (E,)          genome positions, runs sorted ascending;
+                               abundant-key MARKER rows (pos = 2^30)
+                               sort to the front of their run
+  qw      uint32 (ceil(E/4),)  the dropped quarter's byte per entry,
+                               packed 4 per word
+
+A probe keeps a gathered entry where the dropped-quarter byte is at
+base-level Hamming distance 1, or 0 on projection 0.  The reference's
+too_many_spots gate (any constituent exact key with >= 100 positions
+poisons the probing segment, pemapper.c:1599-1615) is kept by the
+MARKER rows: an abundant key's positions are left out of the runs and
+replaced by one marker per (quarter, abundant key) carrying the key's
+quarter byte; a marker passing the Hamming filter poisons the probe.
+
+Storage for P indexed positions: ~4P x 5 bytes + 335 MB of tables.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from ..formats.index_files import SeedIndex
+from ..utils.hugemem import hp_empty
 
 TOO_MANY = 100            # pemapper.c:162 too_many_spots
+MARKER = np.int32(1 << 30)
+SUB_BITS = 24
+N_SUB = 1 << SUB_BITS
 
 
-def quarter_refuses(index: SeedIndex,
-                    max_positions: int = 6_000_000_000) -> bool:
-    """True where ``build_quarter_index(index, max_positions)`` raises
-    for size: a position at or past 2^30, or 4 x (positions of the
-    non-abundant keys + abundant keys) past ``max_positions`` or at or
-    past 2^31 (``pecaller_tpu/index/quarter.py:91-115``)."""
+def _drop_quarter(keys: np.ndarray, q: int):
+    """(sub24, qbyte) of each 16-mer with quarter q removed.  Quarter 0
+    is the first 4 bases (bits 24..31 of the MSB-first packed key)."""
+    k = keys.astype(np.uint64)
+    s = np.uint64((3 - q) * 8)
+    qb = (k >> s) & np.uint64(0xFF)
+    low = k & ((np.uint64(1) << s) - np.uint64(1))
+    sub = ((k >> (s + np.uint64(8))) << s) | low
+    return sub.astype(np.uint32), qb.astype(np.uint32)
+
+
+class QuarterIndex:
+    """Host-side container; arrays in device layout (see module doc)."""
+
+    def __init__(self, starts, cnts, pos, qw):
+        self.starts = starts
+        self.cnts = cnts
+        self.pos = pos
+        self.qw = qw
+
+
+def build_quarter_index(index: SeedIndex,
+                        max_positions: int = 6_000_000_000) -> QuarterIndex:
+    """Build the 4-projection index from the exact-key CSR.  Raises
+    ValueError where the genome is past the index's reach: a position at
+    or past 2^30, or 4 x (positions of non-abundant keys + abundant keys)
+    past ``max_positions`` or at or past 2^31 (int32 device offsets)."""
+    keys = np.asarray(index.keys, dtype=np.uint32)
     starts = np.asarray(index.starts, dtype=np.int64)
-    positions = np.asarray(index.positions)
+    positions = np.asarray(index.positions, dtype=np.uint32)
     counts = np.diff(starts)
-    if len(counts) and int(positions.max(initial=0)) >= (1 << 30):
-        return True
+    ne = len(keys)
+    if ne and int(positions.max(initial=0)) >= (1 << 30):
+        raise ValueError("quarter index requires positions < 2^30")
+
     ab_key = counts >= TOO_MANY
-    per_q = int(counts[~ab_key].sum()) + int(ab_key.sum())
-    return 4 * per_q > max_positions or 4 * per_q >= 2 ** 31
+    n_ab = int(ab_key.sum())
+    # positions of non-abundant keys only (any probe that could use an
+    # abundant key's positions is poisoned by construction)
+    e_of_p = np.repeat(np.arange(ne, dtype=np.int64), counts)
+    keep_p = ~ab_key[e_of_p]
+    pos_n = positions[keep_p]
+    e_n = e_of_p[keep_p]
+    del e_of_p, keep_p
+    Pn = len(pos_n)
+    per_q = Pn + n_ab
+    if 4 * per_q > max_positions:
+        raise ValueError(f"quarter index would hold {4 * per_q} entries "
+                         f"> cap {max_positions}")
+    if 4 * per_q >= 2 ** 31:
+        raise ValueError(
+            f"quarter index would hold {4 * per_q} entries >= 2^31; "
+            "int32 device offsets would overflow")
+
+    E = 4 * per_q
+    out_pos = hp_empty(E, np.int32)
+    out_qb = hp_empty(((E + 3) // 4) * 4, np.uint8)
+    out_qb[E:] = 0
+    cnt_all = np.zeros(4 * N_SUB, np.int64)
+    ab_idx = np.nonzero(ab_key)[0]
+
+    for q in range(4):
+        sub_k, qb_k = _drop_quarter(keys, q)
+        # pack = sub(24) << 40 | norm(1) << 39 | pos(30) << 9 | qb(8) << 1
+        big = hp_empty(per_q, np.uint64)
+        big[:n_ab] = ((sub_k[ab_idx].astype(np.uint64) << np.uint64(40))
+                      | (qb_k[ab_idx].astype(np.uint64) << np.uint64(1)))
+        big[n_ab:] = ((sub_k[e_n].astype(np.uint64) << np.uint64(40))
+                      | np.uint64(1 << 39)
+                      | (pos_n.astype(np.uint64) << np.uint64(9))
+                      | (qb_k[e_n].astype(np.uint64) << np.uint64(1)))
+        big.sort()
+        lo = q * per_q
+        norm = (big >> np.uint64(39)) & np.uint64(1)
+        out_pos[lo:lo + per_q] = np.where(
+            norm == 1,
+            ((big >> np.uint64(9)) & np.uint64((1 << 30) - 1)).astype(
+                np.int64),
+            np.int64(MARKER)).astype(np.int32)
+        out_qb[lo:lo + per_q] = (
+            (big >> np.uint64(1)) & np.uint64(0xFF)).astype(np.uint8)
+        sub_of_e = (big >> np.uint64(40)).astype(np.int64)
+        cnt_all[q * N_SUB:(q + 1) * N_SUB] = np.bincount(
+            sub_of_e, minlength=N_SUB)
+        del big, sub_of_e
+
+    starts_all = hp_empty(4 * N_SUB + 1, np.uint32)
+    starts_all[0] = 0
+    starts_all[1:] = np.cumsum(cnt_all).astype(np.uint32)
+    cnts_sat = np.minimum(cnt_all, 255).astype(np.uint8)
+    return QuarterIndex(starts_all, cnts_sat, out_pos,
+                        out_qb.view(np.uint32))
+
+
+_PARTS = ("starts", "cnts", "pos", "qw")
+
+
+def _cache_paths(basename: str):
+    return {k: f"{basename}.q4x.{k}.npy" for k in _PARTS}
+
+
+def load_quarter_index(basename: str, index: SeedIndex,
+                       max_positions: int = 6_000_000_000,
+                       cache: bool = True) -> QuarterIndex:
+    """Load (or build + disk-cache) the quartered index for ``basename``.
+    Cached parts are raw .npy opened with mmap_mode='r' (straight from
+    the page cache into the device transfer)."""
+    ps = _cache_paths(basename)
+    mdx = basename + ".mdx"
+    fresh = cache and all(os.path.exists(p) for p in ps.values())
+    if fresh and os.path.exists(mdx):
+        fresh = all(os.path.getmtime(p) >= os.path.getmtime(mdx)
+                    for p in ps.values())
+    if fresh:
+        a = {k: np.load(p, mmap_mode="r") for k, p in ps.items()}
+        return QuarterIndex(a["starts"], a["cnts"], a["pos"], a["qw"])
+    qi = build_quarter_index(index, max_positions=max_positions)
+    if cache:
+        try:
+            for k in _PARTS:
+                np.save(ps[k], getattr(qi, k))
+        except OSError:
+            pass
+    return qi

@@ -1,11 +1,13 @@
-"""Fused on-device mapping step (v2, nbr index), PyTorch.
+"""Fused on-device mapping step (v2: nbr or quartered-key index), PyTorch.
 
 Counterpart of ``pecaller_tpu/mapper/device_map2.py``: the same integer
 program, computed bit for bit on the same state, as plain functions on
 tensors of an explicit device.  One call of the step maps one batch:
 
-  read prep and 4-bit packing -> nbr seed probe (cuckoo rank lookup or
-  binary search, then position gathers) -> chaining, diagonal dedup and
+  read prep and 4-bit packing -> seed probe (nbr index: cuckoo rank
+  lookup or binary search, then position gathers; quartered-key index,
+  "v2.5": four projection lookups, a Hamming filter of the dropped
+  quarter and a spill tier for long runs) -> chaining, diagonal dedup and
   CAP selection -> slot compaction -> window fetch -> SW align (K1) ->
   exact-tie / threshold routing and pair decision -> winner compaction
   -> traceback (K2) -> pileup add, insertion and walk-tie records.
@@ -33,6 +35,7 @@ import torch
 
 from ..device import resolve_device
 from ..index.nbr import NBR_HI_BITS, NbrIndex
+from ..index.quarter import MARKER, SUB_BITS, QuarterIndex
 from ..native.build import ptr as _ptr
 from ..ops import sw2
 from ..ops.encode import IDEPTH
@@ -41,7 +44,7 @@ from .engine import (
     MISALIGN_SLOP, NEITHER_MAP, NON_MATE, NON_MIS, NON_NO, UNIQUE_MATE,
     UNIQUE_MIS, UNIQUE_SINGLE, UNIQUE_SLIP, MapperEngine)
 from .host_prep import (_bucket_b, _pad_to, contig_pad,
-                        exact_score_threshold_amb, pack_genome)
+                        exact_score_threshold_amb, pack_genome, segments_of)
 from .seeds import revcomp_batch, segment_offsets
 
 PAD_SCORE = -36
@@ -166,12 +169,44 @@ class NbrDeviceIndex:
                          self.positions)
 
 
+class QuarterDeviceIndex:
+    """Device tensors of a QuarterIndex and the quarter probe's
+    parameters.
+
+    ``t1`` is the inline run-prefix width per projection, ``rcap`` the
+    longest run the probe enumerates (a unit with a longer unpoisoned
+    run falls back to the exact host engine), ``hv`` the spill tier's
+    lookups per batch (0: ``max(2048, (NF4 // 4 + 255) & ~255)`` for the
+    step's NF4 = U x 2 x S x 4 lookups).  ``args`` lists (starts as
+    int32, cnts as uint8, pos int32, qw as int32 bit patterns), the
+    reference step's index arguments; pos and qw carry ``rcap + 8``
+    slack entries so that a run's contiguous gathers never leave the
+    table (their values are marker-coded and always masked)."""
+
+    mode = "quarter"
+
+    def __init__(self, qi: QuarterIndex, device, t1: int = 4,
+                 rcap: int = 12, hv: int = 0):
+        self.device = torch.device(device)
+        self.t1, self.rcap, self.hv = t1, rcap, hv
+        self.n_keys = 0
+        pad = rcap + 8
+        pos = np.concatenate([np.asarray(qi.pos),
+                              np.full(pad, MARKER, np.int32)])
+        qw = np.concatenate([np.asarray(qi.qw),
+                             np.zeros(pad // 4 + 2, np.uint32)])
+        cnts = torch.from_numpy(np.array(qi.cnts, np.uint8))
+        self.args = (_as_i32(qi.starts).to(self.device),
+                     cnts.to(self.device), _as_i32(pos).to(self.device),
+                     _as_i32(qw).to(self.device))
+
+
 @dataclass
 class DeviceState:
     """Everything the step reads besides the batch: index tensors, the
     packed genome (2-bit code and N/exotic mask words as uint32 values
     in int64), contig starts, and the flat pileup counters."""
-    dnbr: NbrDeviceIndex
+    dnbr: NbrDeviceIndex | QuarterDeviceIndex
     gcode: torch.Tensor
     gmask: torch.Tensor
     ist: torch.Tensor
@@ -179,19 +214,21 @@ class DeviceState:
     dev_counts: torch.Tensor
 
 
-def carry_state(nbr: NbrIndex, cw: np.ndarray, mw: np.ndarray,
-                istarts: np.ndarray, n_contigs: int,
-                dev_counts: np.ndarray, device) -> DeviceState:
+def carry_state(index: NbrIndex | QuarterIndex, cw: np.ndarray,
+                mw: np.ndarray, istarts: np.ndarray, n_contigs: int,
+                dev_counts: np.ndarray, device, **quarter_kw) -> DeviceState:
     """Turn the reference package's mapping state into the port's
-    tensors on ``device``: the NbrIndex arrays, ``pack_genome`` words,
-    the contig starts (``MapperEngine._istarts``) and a snapshot of the
-    flat uint32 pileup counters.  Both packages then compute on
-    identical state."""
+    tensors on ``device``: the NbrIndex or QuarterIndex arrays (a
+    QuarterIndex with ``quarter_kw``, the probe parameters of
+    ``QuarterDeviceIndex``), ``pack_genome`` words, the contig starts
+    (``MapperEngine._istarts``) and a snapshot of the flat uint32 pileup
+    counters.  Both packages then compute on identical state."""
     device = torch.device(device)
     ist = np.asarray(istarts).astype(np.int32)
     st_pad = contig_pad(ist, n_contigs)
     return DeviceState(
-        NbrDeviceIndex(nbr, device),
+        QuarterDeviceIndex(index, device, **quarter_kw)
+        if isinstance(index, QuarterIndex) else NbrDeviceIndex(index, device),
         torch.from_numpy(np.asarray(cw, np.uint32).astype(np.int64)).to(
             device),
         torch.from_numpy(np.asarray(mw, np.uint32).astype(np.int64)).to(
@@ -503,8 +540,8 @@ class FusedStep2(DecideLayer):
     blen, orient, bt_k, bt_i] with their count in the tail row.
     ``state.dev_counts`` is updated in place."""
 
-    def __init__(self, dnbr: NbrDeviceIndex, *, paired: bool,
-                 bisulfite: bool, min_dist: int, max_dist: int,
+    def __init__(self, dnbr: NbrDeviceIndex | QuarterDeviceIndex, *,
+                 paired: bool, bisulfite: bool, min_dist: int, max_dist: int,
                  n_contigs: int, B: int, M: int, N: int, s_max: int,
                  ins_cap: int = INS_CAP, tie_cap: int = TIE_CAP,
                  max_rlen: int | None = None):
@@ -521,6 +558,15 @@ class FusedStep2(DecideLayer):
         self.F = 2 * s_max * SEG_CAP
         # SW slots per batch: 1.5 per unit; units past it fall back
         self.H_CAP = ((int(1.5 * self.U) + 255) // 256) * 256
+        # units the quarter probe's caps (spill budget, rcap) sent to the
+        # host, summed on the device over the step's calls
+        self.n_cap_fb = torch.zeros((), dtype=I64, device=self.dev)
+        if dnbr.mode == "quarter":
+            # expected heavy fraction ~ P(run > T1), ~15% at 47 Mb, and
+            # reads cluster within a batch, so the spill budget needs
+            # real margin (a tight one sends batch tails to the host)
+            nf4 = self.U * 2 * s_max * 4
+            self.HV = dnbr.hv or max(2048, (nf4 // 4 + 255) & ~255)
         self.R_ROWS = min(N, (max_rlen or M) + 2 * MISALIGN_SLOP + 1)
         self.chrom_steps = max(3, int(np.ceil(np.log2(
             max(n_contigs, 2)))) + 3)
@@ -642,6 +688,118 @@ class FusedStep2(DecideLayer):
         return self.chain_dedup_select(pos, seg_tot, seg_over, heavy_over,
                                        offsets, n_segs, min_match0, skip)
 
+    @staticmethod
+    def _ham_filter(pe_raw, qb_e, qb_probe, qsel, valid):
+        """Base-level Hamming filter of the dropped-quarter byte and the
+        abundance-marker poisoning: (position or POS_PAD, poison)."""
+        x = (qb_e ^ qb_probe) & 0xFF
+        f = (x | (x >> 1)) & 0x55
+        nm = (f & 1) + ((f >> 2) & 1) + ((f >> 4) & 1) + ((f >> 6) & 1)
+        is_mark = valid & (pe_raw >= MARKER)
+        ok = (nm == 1) | ((nm == 0) & (qsel == 0))
+        cand = valid & ~is_mark & ok
+        return torch.where(cand, pe_raw, POS_PAD), is_mark & (nm <= 1)
+
+    def seed_quarter(self, xcode_f, xcode_r, offsets, n_segs, min_match0,
+                     skip):
+        """Seed probing on the quartered-key index ("v2.5"), (U, ...)
+        unit-major: 4 projection lookups per probe enumerate the
+        Hamming<=1 candidate set of pemapper's fill_mers
+        (pemapper.c:1969-2003); index/quarter.py has the layout."""
+        U, S, seg_cap = self.U, self.S, SEG_CAP
+        dq = self.dnbr
+        starts_t, cnt_t, epos, eqw = dq.args
+        T1, T2E = dq.t1, dq.rcap - dq.t1
+        emax = max(epos.shape[0] - 1, 0)
+        wmax = max(eqw.shape[0] - 1, 0)
+        keys2 = self.make_keys2(xcode_f, xcode_r, offsets)
+
+        # per-quarter projection lookup: (U, 2, S, 4)
+        sh_q = (3 - self._ar(4)) * 8
+        k4 = keys2[..., None]
+        qb_p = (k4 >> sh_q) & 0xFF
+        # two sub-width shifts, as the reference's uint32 program shifts
+        # (k >> 24) >> 8 where k >> 32 is undefined
+        sub = (((k4 >> sh_q) >> 8) << sh_q) | (k4 & ((1 << sh_q) - 1))
+        base = (self._ar(4) << SUB_BITS) | sub
+        start = starts_t[base].to(I64)
+        cnt = cnt_t[base].to(I64)                   # saturated at 255
+
+        # inline tier: the first T1 entries of every run
+        jt1 = self._ar(T1)
+        v1 = jt1 < cnt[..., None]                    # (U, 2, S, 4, T1)
+        pe1 = epos[(start[..., None] + jt1).clamp(0, emax)]
+        w0i = start >> 2
+        w0 = _u32(eqw[w0i.clamp(0, wmax)])
+        w1 = _u32(eqw[(w0i + 1).clamp(0, wmax)])
+        b1 = (start & 3)[..., None] + jt1            # byte 0..T1+2
+        qb1 = torch.where(b1 < 4, (w0[..., None] >> (b1.clamp(0, 3) * 8)),
+                          (w1[..., None] >> ((b1 - 4).clamp(0, 3) * 8))
+                          ) & 0xFF
+        qsel4 = self._ar(4)[None, None, None, :, None]
+        pos1, poison1 = self._ham_filter(pe1, qb1, qb_p[..., None], qsel4,
+                                         v1)
+
+        # spill tier: the runs longer than T1, compacted over the batch
+        heavy = (cnt > T1).reshape(-1)
+        NF4 = U * 2 * S * 4
+        HV = self.HV
+        hc = torch.cumsum(heavy.to(I64), 0)
+        n_heavy = hc[-1]
+        heavy_over = (hc.reshape(U, 2 * S * 4) > HV).any(dim=1)
+        hsrc = vsearch_ge(hc, self._ar(HV) + 1,
+                          _ceil_log2(NF4 + 1)).clamp(0, NF4 - 1)
+        h_ok = self._ar(HV) < n_heavy
+        hstart = start.reshape(-1)[hsrc]
+        hcnt = cnt.reshape(-1)[hsrc]
+        hqb_p = qb_p.reshape(-1)[hsrc]
+        jt2 = self._ar(T2E)
+        v2 = h_ok[:, None] & ((T1 + jt2) < hcnt[:, None])
+        pe2 = epos[(hstart[:, None] + T1 + jt2).clamp(0, emax)]
+        w2i = (hstart + T1) >> 2
+        b2 = ((hstart + T1) & 3)[:, None] + jt2
+        wsel = b2 >> 2
+        bsh = (b2 & 3) * 8
+        qb2 = torch.zeros(pe2.shape, dtype=I64, device=self.dev)
+        for j in range((T1 % 4 + T2E + 3) // 4 + 1):
+            w = _u32(eqw[(w2i + j).clamp(0, wmax)])
+            qb2 = torch.where(wsel == j, (w[:, None] >> bsh) & 0xFF, qb2)
+        pos2, poison2 = self._ham_filter(pe2, qb2, hqb_p[:, None],
+                                         (hsrc & 3)[:, None], v2)
+        tgt = torch.where(h_ok, hsrc, NF4)                # row NF4: dump
+        tail = torch.full((NF4 + 1, T2E), POS_PAD, dtype=I32,
+                          device=self.dev)
+        tail[tgt] = pos2
+        poison_sp = torch.zeros(NF4 + 1, dtype=torch.bool, device=self.dev)
+        poison_sp[tgt] = poison2.any(dim=1)
+
+        # runs longer than rcap cannot be enumerated: the unit falls back
+        # to the exact host engine unless the probe is poisoned anyway
+        poison_q = poison1.any(-1) | poison_sp[:NF4].reshape(U, 2, S, 4)
+        poison_probe = poison_q.any(-1)                    # (U, 2, S)
+        seg_in = (self._ar(S)[None, :] < n_segs[:, None])[:, None, :]
+        enum_probe = (cnt > (T1 + T2E)).any(-1)
+        enum_fb = (enum_probe & ~poison_probe & seg_in).any(dim=2).any(dim=1)
+        self.n_cap_fb += ((heavy_over | enum_fb) & (skip == 0)).sum()
+
+        # merge, ascending sort, keep seg_cap
+        W = 4 * (T1 + T2E)
+        allpos = torch.cat([pos1, tail[:NF4].reshape(U, 2, S, 4, T2E)],
+                           dim=-1).reshape(U, 2, S, W)
+        allpos = torch.where((seg_in & ~poison_probe)[..., None], allpos,
+                             POS_PAD)
+        cnt_cand = (allpos < POS_PAD).sum(-1)              # (U, 2, S)
+        Wp = 1 << (W - 1).bit_length()
+        allpos = torch.cat([allpos, torch.full(
+            (U, 2, S, Wp - W), POS_PAD, dtype=I32, device=self.dev)], dim=-1)
+        # the reference sorts with a bitonic network (bitonic_sort_last):
+        # values without a payload, so every ascending sort of a row gives
+        # the same row
+        pos = torch.sort(allpos, dim=-1).values[..., :seg_cap]
+        return self.chain_dedup_select(pos, cnt_cand, cnt_cand > seg_cap,
+                                       heavy_over | enum_fb, offsets, n_segs,
+                                       min_match0, skip)
+
     def chain_dedup_select(self, pos, seg_tot, seg_over, heavy_over,
                            offsets, n_segs, min_match0, skip):
         """Co-linear chaining, min_match ratchet, per-unit diagonal dedup
@@ -730,8 +888,10 @@ class FusedStep2(DecideLayer):
         x4f_w = pack4_dev(xf)
         x4r_w = pack4_dev(xr)
 
-        hits, hits_off, orient, tot, fb = self.seed_nbr(
-            xf, xr, offsets, n_segs, mm0, skip)
+        seed = (self.seed_quarter if self.dnbr.mode == "quarter"
+                else self.seed_nbr)
+        hits, hits_off, orient, tot, fb = seed(xf, xr, offsets, n_segs, mm0,
+                                               skip)
         fb = pairize(fb | fb_pad | exotic)
         tot = torch.where(fb, 0, tot)
         # units whose hits spill past H_CAP fall back (cap semantics)
@@ -932,35 +1092,60 @@ class FusedStep2(DecideLayer):
 # engine
 
 class FusedMapperEngine2(MapperEngine):
-    """Fused mapping engine v2 (nbr index) on one torch device.
+    """Fused mapping engine v2 on one torch device, seeded by the nbr
+    index or by the quartered-key index ("v2.5").
 
-    The exact host engine ``MapperEngine`` supplies the oracle pieces:
-    the remap of fallback pairs, the native f64 re-walk of tied windows
-    and the output statistics.  ``device`` defaults to the first CUDA
-    device; a CPU device, named by the caller, runs the plain versions
-    of the kernels."""
+    With neither ``nbr`` nor ``quarter`` given it builds the nbr index
+    (fastest probe), and the quartered-key index where the nbr index
+    refuses the genome (past its ~49x blow-up cap) or where
+    ``force_quarter`` asks for it.  ``t1``, ``rcap`` and ``hv`` are the
+    quarter probe's parameters (``QuarterDeviceIndex``).  The exact host
+    engine ``MapperEngine`` supplies the oracle pieces: the remap of
+    fallback pairs, the native f64 re-walk of tied windows and the
+    output statistics.  ``device`` defaults to the first CUDA device; a
+    CPU device, named by the caller, runs the plain versions of the
+    kernels."""
 
-    def __init__(self, *args, nbr: NbrIndex | None = None, device="cuda",
-                 ins_cap: int = INS_CAP, tie_cap: int = TIE_CAP, **kwargs):
+    def __init__(self, *args, nbr: NbrIndex | None = None,
+                 quarter: QuarterIndex | None = None,
+                 force_quarter: bool = False, t1: int = 4, rcap: int = 12,
+                 hv: int = 0, device="cuda", ins_cap: int = INS_CAP,
+                 tie_cap: int = TIE_CAP, **kwargs):
         super().__init__(*args, **kwargs)
         self.device = resolve_device(device)
         gs = self.sdx.genome_size
         if gs >= 2 ** 30:
             raise ValueError("fused device engine requires genome < 2^30 "
                              "bases")
-        if nbr is None:
-            from ..index.nbr import build_nbr_index
-            nbr = build_nbr_index(self.index)     # ValueError past its cap
-        if nbr.hash_tag is None:
+        if quarter is None and nbr is None:
+            from ..index.quarter import build_quarter_index
+            if force_quarter:
+                quarter = build_quarter_index(self.index)
+            else:
+                from ..index.nbr import build_nbr_index
+                try:
+                    nbr = build_nbr_index(self.index)
+                except ValueError:
+                    quarter = build_quarter_index(self.index)
+        if quarter is None and nbr.hash_tag is None:
             nbr.with_cuckoo()
         self.ins_cap, self.tie_cap = ins_cap, tie_cap
         cw, mw = pack_genome(self.genome)
+        qkw = dict(t1=t1, rcap=rcap, hv=hv) if quarter is not None else {}
         self.state = carry_state(
-            nbr, cw, mw, self._istarts, self.sdx.n_contigs,
-            np.zeros((gs + SCATTER_PAD) * 6, np.uint32), self.device)
+            nbr if quarter is None else quarter, cw, mw, self._istarts,
+            self.sdx.n_contigs, np.zeros((gs + SCATTER_PAD) * 6, np.uint32),
+            self.device, **qkw)
         self._steps = {}
         self.n_fallback = 0
         self.n_tiefix = 0       # walk-tie windows re-walked on host
+
+    @property
+    def n_cap_fallback(self) -> int:
+        """Units the quarter probe sent to the host because a run was
+        past rcap or the batch's spill budget ran out (0 on the nbr
+        index)."""
+        return sum(int(s.n_cap_fb) for s in self._steps.values())
 
     def _step_for(self, B, M, N, s_max, mr):
         key = (B, M, N, s_max, mr)
@@ -1011,7 +1196,7 @@ class FusedMapperEngine2(MapperEngine):
         M = _pad_to(max(maxlen, 32), 16)
         N = _pad_to(M + 2 * MISALIGN_SLOP + 1, 16)
         mr = _pad_to(max(maxlen, 32), 8)
-        s_max = self._seg_bucket(max(1, maxlen // 16))
+        s_max = self._seg_bucket(segments_of(maxlen))
         step = self._step_for(B, M, N, s_max, mr)
         ins = self._prep_end2(seqs1, lens1, B, M, s_max)
         if self.paired:

@@ -40,7 +40,7 @@ from .device_seeds import (HIT_CAP, DeviceSeedIndex, host_bits_rev,
                            seed_chain_core)
 from .engine import MISALIGN_SLOP, MapperEngine
 from .host_prep import (_bucket_b, _pad_to, contig_pad,
-                        exact_score_threshold)
+                        exact_score_threshold, segments_of)
 from .seeds import revcomp_batch, segment_offsets
 
 PAD_SCORE = -36          # -1.0 x36: the reference's dvector padding
@@ -383,7 +383,7 @@ class FusedMapperEngine(MapperEngine):
             maxlen = max(maxlen, int(lens2.max()) if len(lens2) else 32)
         M = _pad_to(max(maxlen, 32), 16)
         N = _pad_to(M + 2 * MISALIGN_SLOP + 1, 32)
-        s_max = self._seg_bucket(max(1, maxlen // 16))
+        s_max = self._seg_bucket(segments_of(maxlen))
         step = self._step_for(B, M, N, s_max)
         ins = list(self._prep_end(seqs1, lens1, B, M, s_max))
         if self.paired:

@@ -30,7 +30,8 @@ import torch
 
 from ..formats.index_files import SeedIndex
 from ..ops.encode import BASE_BITS, IDEPTH, _RC
-from .device_map2 import MASK32, _as_i32, _u32
+from .device_map2 import (MASK32, _as_i32, _u32, fetch_async, fetched,
+                          to_device)
 
 S_MAX = 20              # max segments (reads <= 299bp)
 KEY_CAP = 8             # positions gathered per neighborhood key
@@ -331,3 +332,44 @@ def seed_chain_core(ptab, ikeys, istarts, hi_table, positions,
     fallback = ((seg_over.any(2).any(1) | (n_keep > HIT_CAP) |
                  compact_over | a_over) & (skip == 0))
     return hits, hits_off, orient, tot, fallback
+
+
+def build_seed_chain_fn(dindex: DeviceSeedIndex, bisulfite: bool = False,
+                        s_max: int = 8):
+    """The seed step of one batch end on ``dindex``'s device, for the
+    split engine.  ``s_max``: static segment-count bucket (8 covers
+    reads <= 127 bp).  Returns seed_chain(seqs, lens, offsets, n_segs,
+    min_match0, skip) -> (hits, hits_off, orient, tot, fallback) numpy
+    arrays, with ``.dispatch`` (host prep, upload, enqueue and the start
+    of one copy back) and ``.fetch`` (wait for that copy and split it)
+    as its two halves."""
+    n_steps = max(1, int(np.ceil(np.log2(max(dindex.max_subrange, 2)))) + 1)
+
+    def dispatch(seqs, lens, offsets, n_segs, min_match0, skip):
+        _, bits_f, bits_r = host_bits_rev(seqs, lens, bisulfite=bisulfite)
+        t = [to_device(x, dindex.device) for x in (
+            bits_f, bits_r, offsets, n_segs, min_match0, skip)]
+        hits, hits_off, orient, tot, fallback = seed_chain_core(
+            dindex.ptab, dindex.keys, dindex.starts, dindex.hi_table,
+            dindex.positions, *t, s_max=s_max, n_steps=n_steps,
+            n_keys=dindex.n_keys,
+            k_cap=dindex.compact_cap(bits_f.shape[0] * 2 * s_max * 49))
+        # one int32 matrix: a single copy to the host per call
+        packed = torch.cat([hits, hits_off, orient.to(I32), tot[:, None],
+                            fallback.to(I32)[:, None]], dim=1)
+        return fetch_async(packed, dindex.device)
+
+    def fetch(pending):
+        packed = fetched(pending)
+        h = HIT_CAP
+        return (packed[:, :h], packed[:, h:2 * h],
+                packed[:, 2 * h:3 * h].astype(np.int8), packed[:, 3 * h],
+                packed[:, 3 * h + 1].astype(bool))
+
+    def seed_chain(seqs, lens, offsets, n_segs, min_match0, skip):
+        return fetch(dispatch(seqs, lens, offsets, n_segs, min_match0,
+                              skip))
+
+    seed_chain.dispatch = dispatch
+    seed_chain.fetch = fetch
+    return seed_chain

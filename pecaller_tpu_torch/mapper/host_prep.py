@@ -27,6 +27,18 @@ def _bucket_b(n: int, lo: int = 512) -> int:
     return b
 
 
+def segments_of(length: int) -> int:
+    """Seed segments of a read of ``length`` bases, as
+    ``seeds.segment_offsets`` cuts it (one every 16 bases, the last one
+    ending at the read's end): ceil(length / 16), at least 1.  The fused
+    engines size their segment axis by it.  The reference engines size
+    it by length // 16, one short for every length that is not a
+    multiple of 16: the step then never sees the read's last segment,
+    and a read whose chain needs it goes unmapped where the host oracle
+    maps it (ROADMAP queue 3)."""
+    return max(1, -(-length // 16))
+
+
 def contig_pad(istarts: np.ndarray, n_contigs: int) -> np.ndarray:
     """Contig starts padded with INT32_MAX to the length the device
     contig search probes (it starts at index 7)."""

@@ -5,9 +5,9 @@ decompression): <out>.pileup.gz, <out>.indel.txt.gz, <out>.summary.txt and
 per-fastq .mfile position dumps (pemapper.c:374-393, 775-781, 788-898).
 
 Counterpart of ``pecaller_tpu/mapper/runner.py``.  ``run_mapper`` picks
-the engine (the host oracle, or on a torch device the fused v2 engine on
-the nbr index, else the fused v1 engine) and ``map_files`` runs the
-batch loop and the writers for a given engine.
+the engine (the host oracle, or on a torch device the engine that
+``device_route`` names for the genome) and ``map_files`` runs the batch
+loop and the writers for a given engine.
 """
 
 from __future__ import annotations
@@ -23,8 +23,9 @@ from ..formats.fastq import FastqBatcher
 from ..formats.index_files import load_index
 from ..formats.sdx import read_sdx, read_seq, find_chrom_mapper
 from ..index.nbr import load_nbr_index
-from ..index.quarter import quarter_refuses
+from ..index.quarter import load_quarter_index
 from ..utils.log import get_logger, stage_timer, event
+from .device_engine import DeviceMapperEngine
 from .device_map2 import FusedMapperEngine2
 from .device_pipeline import FusedMapperEngine
 from .engine import MapperEngine
@@ -85,17 +86,34 @@ def _strip_sdx(path: str) -> str:
 PIPELINE_DEPTH = 3
 
 
+SPLIT_GENOME = 2 ** 30     # int32 device coordinates end here
+
+
+def device_route(genome_size: int, nbr_index=None, quarter_index=None):
+    """The device engine the JAX runner picks
+    (``pecaller_tpu/mapper/runner.py:80-117``) for a genome of
+    ``genome_size`` bases, given the two seed-index loaders (each
+    returns its index or raises ValueError where it refuses the genome;
+    neither is called past ``SPLIT_GENOME``).  Returns (route, index):
+    ("split", None) for the split engine (host seeds, SW and traceback
+    on the device) at 2^30 bases and more; ("nbr", NbrIndex) and
+    ("quarter", QuarterIndex) for the fused v2 engine on that index;
+    ("v1", None) for the fused v1 engine where both indexes refuse."""
+    if genome_size >= SPLIT_GENOME:
+        return "split", None
+    try:
+        return "nbr", nbr_index()
+    except ValueError:
+        pass
+    try:
+        return "quarter", quarter_index()
+    except ValueError:
+        return "v1", None
+
+
 def build_device_engine(cfg: MapperConfig, sdx, genome, index, base,
                         device):
-    """The engine the JAX runner picks for this genome
-    (``pecaller_tpu/mapper/runner.py:80-117``): the fused v2 engine on
-    the nbr index; where the nbr index refuses and the quartered-key
-    index would not, an error naming that index, not yet ported; where
-    both refuse, the fused v1 engine."""
-    if sdx.genome_size >= 2 ** 30:
-        raise NotImplementedError(
-            "genomes of 2^30 bases or more need the split device engine "
-            "(ROADMAP queue 1, item 10), not yet ported")
+    """The engine of ``device_route`` for this genome on ``device``."""
     if cfg.mesh_shards not in (None, 1):
         raise NotImplementedError(
             "multi-device mapping (ROADMAP queue 1, item 8) is not yet "
@@ -103,17 +121,15 @@ def build_device_engine(cfg: MapperConfig, sdx, genome, index, base,
     kw = dict(bisulfite=cfg.bisulfite, min_align=cfg.min_align,
               min_dist=cfg.min_dist, max_dist=cfg.max_dist,
               paired=cfg.paired, nthreads=cfg.nthreads, device=device)
-    try:
-        nbr = load_nbr_index(base, index)
-    except ValueError as e:
-        if not quarter_refuses(index):
-            raise NotImplementedError(
-                f"the nbr index refuses this genome ({e}) and the "
-                "quartered-key index (ROADMAP queue 1, item 6), which "
-                "would take it, is not yet ported") from e
-        event(_log, "engine", name="fused_v1", reason=str(e))
+    route, idx = device_route(
+        sdx.genome_size, lambda: load_nbr_index(base, index),
+        lambda: load_quarter_index(base, index))
+    event(_log, "engine", route=route)
+    if route == "split":
+        return DeviceMapperEngine(sdx, genome, index, **kw)
+    if route == "v1":
         return FusedMapperEngine(sdx, genome, index, **kw)
-    return FusedMapperEngine2(sdx, genome, index, nbr=nbr, **kw)
+    return FusedMapperEngine2(sdx, genome, index, **{route: idx}, **kw)
 
 
 def run_mapper(cfg: MapperConfig, device=None) -> MapperEngine:

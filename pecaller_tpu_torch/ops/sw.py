@@ -12,7 +12,10 @@ other byte (IUPAC letters, other lowercase) compares by equality.
 wrapper ``ops/sw_cuda.py::sw_align``).  ``sw_traceback_device`` replays
 the DP of the winners into per-cell decision bits and walks the path
 back, one step per loop iteration (an XLA program in the reference, not
-a Pallas kernel).
+a Pallas kernel).  ``sw_traceback_scatter`` adds the walk's events to a
+resident (genome, 6) pileup through ``pileup_scatter`` and compacts the
+insertion records: the split engine's traceback
+(``mapper/device_engine.py``).
 
 Reference recurrences: pemapper.c:1694-1748 (score), :1752-1965 (walk).
 """
@@ -228,3 +231,68 @@ def sw_traceback_device(refs, blens, reads, rlens, bt_k, bt_i,
                           torch.where(kind >= 0, kind, EV_NONE),
                           torch.where(rec_dj == -2, EV_DEL, EV_NONE))
     return rec_i.to(I32), ev_kind.to(torch.int8), ins_j, ins_len
+
+
+def pileup_scatter(ev_pos_abs, ev_kind, ins_mask, counts):
+    """Add walk events to the (genome_size, 6) pileup ``counts`` in place
+    and return it.  ``counts`` is int16 carrying the bits of the
+    reference's wrapping uint16 counters; the adds wrap mod 2^16.
+
+    ev_pos_abs (E,) int64 absolute positions (or -1), ev_kind (E,) int8
+    (kinds 0..4 count in their column, EV_NONE nothing), ins_mask (E,)
+    bool marking insertion attachments (column 5).  Events past the
+    genome are dropped.  The reference builds a fresh uint16 array per
+    call and adds it to its counts; adding in place gives the same bits
+    mod 2^16 without a second genome-sized array."""
+    gs = counts.shape[0]
+    flat = counts.view(-1)
+    inb = (ev_pos_abs >= 0) & (ev_pos_abs < gs)
+    valid = inb & (ev_kind != EV_NONE)
+    flat.index_add_(0, torch.where(valid, ev_pos_abs * 6 + ev_kind.long(),
+                                   0), valid.to(counts.dtype))
+    ivalid = inb & ins_mask
+    flat.index_add_(0, torch.where(ivalid, ev_pos_abs * 6 + 5, 0),
+                    ivalid.to(counts.dtype))
+    return counts
+
+
+def sw_align_device_packed(refs, blens, reads, rlens,
+                           bisulfite: bool = False,
+                           n_rows: int | None = None):
+    """sw_align_device with its outputs stacked into one (3, B) int32
+    tensor (one copy to the host)."""
+    return torch.stack(sw_align_device(refs, blens, reads, rlens,
+                                       bisulfite=bisulfite, n_rows=n_rows))
+
+
+def sw_traceback_scatter(refs, blens, reads, rlens, bt_k, bt_i, pos0,
+                         counts, bisulfite: bool = False,
+                         n_rows: int | None = None, ins_cap: int = 2048):
+    """Traceback, pileup add and insertion-record compaction.
+
+    pos0 (B,) int64: each lane's window start in the genome.  The walk's
+    events are added to ``counts`` (pileup_scatter) in place.  Returns
+    (counts, rec): rec (min(ins_cap, B x T) + 1, 4) int32 rows [lane,
+    window row, read-slice start, length] of the insertion attachments
+    in (lane, step) order, the last row [total, 0, 0, 0]."""
+    ev_pos, ev_kind, ins_j, ins_len = sw_traceback_device(
+        refs, blens, reads, rlens, bt_k, bt_i, bisulfite=bisulfite,
+        n_rows=n_rows)
+    ev_abs = torch.where(ev_pos >= 0, ev_pos.long() + pos0.long()[:, None],
+                         -1)
+    valid = (ins_j >= 0).reshape(-1)
+    pileup_scatter(ev_abs.reshape(-1), ev_kind.reshape(-1), valid, counts)
+    T = ev_pos.shape[1]
+    # stable: the records keep their (lane, step) order
+    order = torch.argsort((~valid).to(torch.uint8), stable=True)[:ins_cap]
+    bb = torch.div(order, T, rounding_mode="floor")
+    tt = order % T
+    sel = valid[order]
+    rec = torch.stack([
+        torch.where(sel, bb, -1),
+        torch.where(sel, ev_pos[bb, tt].long(), -1),
+        torch.where(sel, ins_j[bb, tt].long(), -1),
+        torch.where(sel, ins_len[bb, tt].long(), 0)], dim=1).to(I32)
+    tail = torch.zeros((1, 4), dtype=I32, device=refs.device)
+    tail[0, 0] = valid.sum()
+    return counts, torch.cat([rec, tail])

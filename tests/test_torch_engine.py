@@ -68,3 +68,44 @@ def test_engine_matches_host_and_jax(data, name):
     assert port.final_pileup().any() and port.ins_records
     if name == "paired":
         assert port.n_tiefix > 0          # tied windows re-walked on host
+
+
+def test_segments_of_matches_segment_offsets():
+    from pecaller_tpu_torch.mapper.host_prep import segments_of
+    from pecaller_tpu_torch.mapper.seeds import segment_offsets
+    lens = np.arange(0, 321)
+    n_segs, _ = segment_offsets(lens)
+    assert [segments_of(int(x)) for x in lens] == n_segs.tolist()
+
+
+def test_last_segment_reads_match_host(data):
+    """Single-end 100 bp reads whose chain needs their last seed segment
+    (offset 84): two mismatches in each of the segments at 32, 48 and 64
+    leave seeds in 4 of the 7 segments, and min_match is 4.  The port's
+    engine sizes its segment axis by the reads' 7 segments and maps them
+    as the host oracle does.  The JAX engine sizes it by 100 // 16 = 6,
+    never sees the segment at 84 and leaves them unmapped (a fault of the
+    reference, ROADMAP queue 3)."""
+    sdx, genome, index = load_genome(data, "g")
+    rng = np.random.default_rng(8)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    reads = []
+    while len(reads) < 48:
+        st = int(rng.integers(6000, 29000))
+        r = genome[st:st + 100].copy()
+        if not np.isin(r, acgt).all():
+            continue
+        for p in (36, 42, 52, 58, 68, 74):
+            r[p] = acgt[(np.searchsorted(acgt, r[p]) + 1) % 4]
+        reads.append(r)
+    reads = np.stack(reads)
+    lens = np.full(len(reads), 100, np.int64)
+    host, jax_eng, port = _engines(data, "g", SINGLE)
+    nos = np.arange(len(reads))
+    want, jgot, got = (e.map_batch(reads, lens, read_nos=nos)
+                       for e in (host, jax_eng, port))
+    for a, b in zip(want, got):
+        assert np.array_equal(a, b)
+    assert (want[2] == 2).sum() >= 40                 # the host maps them
+    assert ((jgot[2] != want[2]).sum() >= 40)         # the reference not
+    assert np.array_equal(host.final_pileup(), port.final_pileup())

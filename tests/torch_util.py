@@ -28,9 +28,10 @@ PAIRED = dict(paired=True, min_align=0.9, min_dist=0, max_dist=500,
 SINGLE = dict(paired=False, min_align=0.9, nthreads=2)
 
 
-def make_fused2_data(d):
-    """Write g.* (index without the dense .idx) and r1/r2.fastq into d."""
-    rng = np.random.default_rng(43)
+def make_fused2_data(d, seed=43):
+    """Write g.* (index without the dense .idx) and r1/r2.fastq into d
+    (seed 47: the data of tests/test_quarter.py)."""
+    rng = np.random.default_rng(seed)
     names, seqs = make_genome(rng, [30000, 20000], n_blocks=[(0, 5000, 30)])
     fa = str(d / "g.fa")
     write_fasta(fa, names, seqs)
@@ -137,13 +138,29 @@ class StepCase:
     """One batch of one configuration, ready for both steps."""
 
     def __init__(self, d, base, f1, f2, paired, bisulfite, n, seed,
-                 binsearch=False, monkeypatch=None):
+                 binsearch=False, monkeypatch=None, quarter=None,
+                 qkw=None):
+        """``quarter``: seed through this (JAX package's) QuarterIndex,
+        with the probe parameters ``qkw`` (t1, rcap, hv; the JAX step
+        reads them from its environment knobs, set through
+        ``monkeypatch``), instead of the nbr index."""
         from pecaller_tpu.mapper.engine import MapperEngine
         self.sdx, self.genome, index = load_genome(d, base)
-        nbr = shared_nbr(d, base, index, binsearch)
-        if binsearch:
-            monkeypatch.setenv("PECALLER_NO_CUCKOO", "1")
-        self.jd = jdm.NbrDeviceIndex(nbr)
+        if quarter is not None:
+            from pecaller_tpu.index.quarter import QuarterDeviceIndex
+            from pecaller_tpu_torch.index.quarter import QuarterIndex
+            qkw = {"t1": 4, "rcap": 12, "hv": 0, **(qkw or {})}
+            for knob, k in (("T1", "t1"), ("RCAP", "rcap"), ("HV", "hv")):
+                monkeypatch.setenv(f"PECALLER_Q4_{knob}", str(qkw[k]))
+            self.jd = QuarterDeviceIndex(quarter)
+            nbr = QuarterIndex(quarter.starts, quarter.cnts, quarter.pos,
+                               quarter.qw)
+        else:
+            qkw = {}
+            nbr = shared_nbr(d, base, index, binsearch)
+            if binsearch:
+                monkeypatch.setenv("PECALLER_NO_CUCKOO", "1")
+            self.jd = jdm.NbrDeviceIndex(nbr)
         self.kw = dict(paired=paired, bisulfite=bisulfite, min_dist=0,
                        max_dist=500, n_contigs=self.sdx.n_contigs)
         self.shape = dict(B=_bucket(n), M=112, N=144, s_max=6,
@@ -160,7 +177,8 @@ class StepCase:
             0, 7, (self.sdx.genome_size + tdm.SCATTER_PAD) * 6).astype(
                 np.uint32)
         self.state = tdm.carry_state(nbr, cw, mw, self.sdx.istarts,
-                                     self.sdx.n_contigs, self.counts, CPU)
+                                     self.sdx.n_contigs, self.counts, CPU,
+                                     **qkw)
         # the reference engine's host prep makes the batch tensors
         host = jdm.FusedMapperEngine2.__new__(jdm.FusedMapperEngine2)
         MapperEngine.__init__(host, self.sdx, self.genome, index,
@@ -208,9 +226,10 @@ CASES = {
 }
 
 
-def check_step(data, name):
-    """Whole step of one configuration: packed output and dev_counts."""
-    c = StepCase(data, *CASES[name], seed=len(name))
+def check_step(data, name, **case_kw):
+    """Whole step of one configuration: packed output and dev_counts.
+    Returns the case and the port's output."""
+    c = StepCase(data, *CASES[name], seed=len(name), **case_kw)
     fn = jax.jit(c.jax_raw())
     dc_j, out_j = fn(jnp.asarray(c.counts), *c.jd.args, *c.jfixed, *c.ins)
     out_t = c.port_step()(c.state, *c.tins())
@@ -221,3 +240,4 @@ def check_step(data, name):
     assert (out_t[:B, 2] != 8).any()                  # reads mapped
     assert int(out_t[B + tdm.INS_CAP, 0]) > 0         # insertion records
     assert not np.array_equal(np.asarray(dc_j), c.counts)
+    return c, out_t
