@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--pairs N]
     python3 chip_smoke.py --kernels     # phases 1-3 only, about a minute
+    python3 chip_smoke.py --caller      # phases 1, 8 and 8b only
 
 Phases (each prints one line; any failure raises and exits non-zero):
 
@@ -59,10 +60,32 @@ Phases (each prints one line; any failure raises and exits non-zero):
      event layout at positions on both sides of 2^30 and 2^31 and in the
      genome's last window, one cell pushed past 65,535; the touched rows
      equal np.add.at on uint16
+  8. caller: bench.py's caller cohort (3 samples, Poisson depth 30, seed
+     77, SNPs 1/1500, deletions and insertions 1/8000 each) over phase
+     4's genome, made once under .smoke/callbench/; the exact native
+     engine on every callable site (no screen) is the oracle;
+     (a) the port's command line `pecaller pileup g.sdx 3 ours 0.95
+     0.001 n <threads> n` (host phase 0, phase 1 on the card where a
+     window's UNRES sites exceed the small-set rule) and (b) both screen
+     phases on the card (host_screen False): .snp, .dist and the
+     decompressed .base.gz and .piles.gz byte-equal to the oracle's;
+     (b)'s phase 1 must take sites on the card; for each route sites/s
+     (median of 3 passes after a warm pass), each stage's seconds, the
+     sites each screen phase took on the card, the EASY / BAD / HARD
+     counts, the sites sent to the native engine, peak device memory;
+     the oracle's seconds.  No kernel of K1-K3 lies on this path.
+  8b. the screen's contract on the card: CallerScreen at one full chunk
+     of 3 samples (2^18 sites) and one of 64 (2^15) on screen_fuzz's
+     counts; phase-0 codes bitwise equal to the CPU's and to the native
+     phase 0, phase-1 codes held to screen_contract against the CPU's
+     (no site EASY whose float64 margins fail the exact criterion; equal
+     but for sites within 0.15 of a threshold, counted); each phase's ms
+     per chunk (CUDA events) and the screen's sites/s
 
 Then a JSON line of the kernels (launches summed over phases 4-7), and
 last the result line {"ok": true, "device": {...}}.  With --kernels:
-phases 1-3, the kernels line with launches null, and no result line.  Needs no network and
+phases 1-3, the kernels line with launches null, and no result line.
+With --caller: phases 1, 8 and 8b, and neither line.  Needs no network and
 starts no process that outlives it.  The script and the port import
 nothing of jax nor of the JAX package pecaller_tpu; the run fails if
 either entered sys.modules.
@@ -979,7 +1002,7 @@ def main_path(n_pairs):
     t_nbr = time.time() - t0
 
     # the port's device path: `python -m pecaller_tpu_torch pemapper
-    # ... --device` (cli.cmd_pemapper), in this process so the kernel
+    # ... --device` (cli.parse_pemapper), in this process so the kernel
     # launch counters are readable
     dev_dir = _run_dir("device")
     dev = torch.device("cuda", 0)
@@ -1486,6 +1509,383 @@ def profile_v1(n_pairs, n_batches=2):
             ka, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]])
 
 
+# ---------------------------------------------------------------------------
+# the caller (phases 8 and 8b)
+
+CALL_SAMPLES = 3
+CALL_DEPTH = 30
+# phase 8b: (samples, sites) of one full screen chunk each
+SCREEN_CHUNKS = ((3, 1 << 18), (64, 1 << 15))
+# the f32 error the screen's band allows for (caller/device_screen.py)
+SCREEN_TOL = 0.15
+
+
+def make_call_data(data=DATA):
+    """bench.py's caller cohort (bench.py:142-197) over phase 4's genome,
+    written once under .smoke/callbench/ with the port's formats: 3
+    samples, Poisson depth 30 (seed 77), SNPs at 1/1500, deletions and
+    insertions at 1/8000 each, errors Poisson(0.005 x depth), genotypes
+    0/1/2.  Returns the directory and the seconds it took (None where it
+    was already made)."""
+    import numpy as np
+    from pecaller_tpu_torch.formats.pileup import write_pileup
+    from pecaller_tpu_torch.formats.sdx import read_sdx, read_seq
+    cb = os.path.join(data, "callbench")
+    tag = os.path.join(cb, "ready")
+    if os.path.exists(tag):
+        return cb, None
+    t0 = time.time()
+    shutil.rmtree(cb, ignore_errors=True)
+    os.makedirs(cb)
+    sdx = read_sdx(os.path.join(data, "g.sdx"))
+    genome = read_seq(os.path.join(data, "g.seq"), sdx.genome_size)
+    gs = sdx.genome_size
+    lut = np.full(256, -1, np.int16)
+    for ch, i in zip(b"ACGT", range(4)):
+        lut[ch] = i
+    ref = lut[genome]
+    ok = ref >= 0
+    rng = np.random.default_rng(77)
+    is_snp = rng.random(gs) < 1 / 1500
+    alt = (ref + rng.integers(1, 4, gs)) % 4
+    is_del = rng.random(gs) < 1 / 8000
+    is_ins = rng.random(gs) < 1 / 8000
+    pos_all = np.arange(gs, dtype=np.uint32)
+    for s in range(CALL_SAMPLES):
+        depth = rng.poisson(CALL_DEPTH, gs).astype(np.int32)
+        cnt = np.zeros((gs, 6), np.int32)
+        rows = np.arange(gs)
+        rc = np.maximum(ref, 0)
+        cnt[rows, rc] = depth
+        err = np.minimum(rng.poisson(0.005 * CALL_DEPTH, gs), depth)
+        ecol = (ref + rng.integers(1, 4, gs)) % 4
+        cnt[rows, rc] -= err
+        cnt[rows, ecol] += err
+        gt = rng.integers(0, 3, gs)
+        m = is_snp & (gt > 0)
+        half = np.where(gt[m] == 1, cnt[m, :4].max(1) // 2,
+                        cnt[m, :4].max(1))
+        cnt[np.nonzero(m)[0], alt[m]] += half
+        cnt[np.nonzero(m)[0], rc[m]] -= half
+        md = is_del & (gt > 0)
+        cnt[md, 4] = np.where(gt[md] == 1, depth[md] // 2, depth[md])
+        cnt[np.nonzero(md)[0], rc[md]] -= cnt[md, 4]
+        mi = is_ins & (gt > 0)
+        cnt[mi, 5] = np.where(gt[mi] == 1, depth[mi] // 2, depth[mi])
+        cnt = np.clip(cnt, 0, 65535).astype(np.uint16)
+        keep = ok & (depth > 0)
+        write_pileup(os.path.join(cb, f"s{s}.pileup.gz"),
+                     pos_all[keep], cnt[keep])
+    for f in ("g.sdx", "g.seq"):
+        shutil.copy(os.path.join(data, f), os.path.join(cb, f))
+    open(tag, "w").close()
+    return cb, time.time() - t0
+
+
+def _call_artifacts(base):
+    out = {}
+    for ext in (".snp", ".dist", ".base.gz", ".piles.gz"):
+        with open(base + ext, "rb") as f:
+            raw = f.read()
+        out[ext] = gzip.decompress(raw) if ext.endswith(".gz") else raw
+    return out
+
+
+def _call_gate(route, base, want):
+    got = _call_artifacts(base)
+    diff = [k for k in want if got[k] != want[k]]
+    if diff:
+        raise AssertionError(f"caller route {route}: {diff} differ from "
+                             "the exact path's")
+
+
+def _call_passes(run):
+    """sites/s of ``run()`` (which returns run_caller's result): the
+    median of 3 passes after a warm pass, the passes, and the median
+    pass's result."""
+    run()
+    passes = []
+    for _ in range(3):
+        t0 = time.time()
+        res = run()
+        passes.append((res["n_sites"] / (time.time() - t0), res))
+    passes.sort(key=lambda p: p[0])
+    return passes[1][0], [p[0] for p in passes], passes[1][1]
+
+
+def caller_path(n_pairs, data=DATA):
+    """Phase 8: the caller on bench.py's 3-sample cohort over phase 4's
+    4.6 Mb genome.  The exact native engine on every callable site (no
+    screen: device_screen and host_screen False) is the oracle; (a) the
+    port's command line `pecaller pileup g.sdx 3 ours 0.95 0.001 n
+    <threads> n` (phase 0 on the host, phase 1 on the card where a
+    window's UNRES sites exceed the small-set rule) and (b) both screen
+    phases on the card
+    (host_screen False) must each give the oracle's artifacts byte for
+    byte."""
+    import torch
+    from pecaller_tpu_torch import cli
+    from pecaller_tpu_torch.caller import CallerConfig, run_caller
+    make_data(n_pairs, data)
+    cb, t_data = make_call_data(data)
+    threads = os.cpu_count() or 2
+    dev = torch.device("cuda", 0)
+    # what earlier phases still hold on the card: the peaks below
+    # include it
+    held = torch.cuda.memory_allocated(dev)
+
+    t0 = time.time()
+    exact = run_caller(CallerConfig(
+        pileup_ext="pileup", sdx_path=os.path.join(cb, "g.sdx"),
+        out_base=os.path.join(cb, "exact"), directory=cb, nthreads=threads,
+        device_screen=False, host_screen=False))
+    t_exact = time.time() - t0
+    want = _call_artifacts(os.path.join(cb, "exact"))
+    if not 0 < exact["n_sites"] == want[".base.gz"].count(b"\n") \
+            == exact["native_sites"]:
+        raise AssertionError("the exact path did not call every site")
+
+    routes = {}
+    # (a): the default route, through the command line (the run reads
+    # the pileups of its working directory)
+    argv = ["pileup", "g.sdx", str(CALL_SAMPLES), "ours", "0.95", "0.001",
+            "n", str(threads + 1), "n"]
+    cwd = os.getcwd()
+    os.chdir(cb)
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        if cli.main(["pecaller", *argv]) != 0:
+            raise AssertionError("pecaller exited non-zero")
+        _call_gate("a", os.path.join(cb, "ours"), want)
+        routes["a"] = _call_passes(
+            lambda: run_caller(cli.parse_pecaller(argv))) + (
+            torch.cuda.max_memory_allocated(dev),)
+    finally:
+        os.chdir(cwd)
+    # (b): both screen phases on the card
+    cfg_b = CallerConfig(
+        pileup_ext="pileup", sdx_path=os.path.join(cb, "g.sdx"),
+        out_base=os.path.join(cb, "both"), directory=cb, nthreads=threads,
+        host_screen=False)
+    torch.cuda.reset_peak_memory_stats(dev)
+    run_caller(cfg_b)
+    _call_gate("b", cfg_b.out_base, want)
+    routes["b"] = _call_passes(lambda: run_caller(cfg_b)) + (
+        torch.cuda.max_memory_allocated(dev),)
+    if not routes["b"][2]["screen_sites"]["phase1"]:
+        raise AssertionError("route b: phase 1 took no site on the card")
+
+    out = {}
+    for k, (rate, rates, res, peak) in routes.items():
+        out[k] = dict(sites_per_s=rate, sites_per_s_passes=rates,
+                      spread=(rates[-1] - rates[0]) / rate,
+                      phases_s=res["phases"],
+                      sites_on_card=res["screen_sites"],
+                      codes=res["codes"], native_sites=res["native_sites"],
+                      max_memory_allocated=peak)
+    say("caller_path", samples=CALL_SAMPLES, sites=routes["a"][2]["n_sites"],
+        byte_equal=sorted(want), passes="median of 3 after a warm pass",
+        a_phase1_on_card="the card takes a window's phase 1 only where "
+        "len(un) * indiv > 65536; not known for this data before the run",
+        routes=out, exact_s=t_exact, data_s=t_data,
+        memory_allocated_at_start=held)
+
+
+def screen_fuzz(rng, n, indiv):
+    """(reads (n, indiv, 6) uint16, ref_int (n,) uint8, ctype (n,) uint8)
+    at the screen's edges: tests/test_screen.py's kinds (shallow, het-ish,
+    low-level errors, Del and Ins support around 3, hom-alt), a margin
+    sweep (depth 8-48, 0-5 alt reads), depths around TMAX and DEPTH_GATE,
+    counts of 32768 and more, argmax ties (equal alternate counts, no
+    alternate read), references of 4 and 5 and chrY sites.  Plain sites
+    (every read the reference base) have depth 8-59, so that with many
+    samples some are EASY."""
+    import numpy as np
+    from pecaller_tpu_torch.caller.device_screen import (CMAX, DEPTH_GATE,
+                                                         TMAX)
+    shape = (n, indiv)
+    ref = rng.integers(0, 4, n)
+    ref = np.where(rng.random(n) < 0.03, rng.integers(4, 6, n), ref)
+    ctype = np.where(rng.random(n) < 0.2, 2, 0).astype(np.uint8)
+    kind = np.broadcast_to(rng.integers(0, 12, n)[:, None], shape)
+    depth = np.select(
+        [kind == 0, kind == 1, kind == 7, kind == 8, kind == 9, kind == 10],
+        [rng.integers(8, 60, shape), rng.integers(0, 12, shape),
+         rng.integers(TMAX - 2, TMAX + 3, shape),
+         rng.integers(DEPTH_GATE - 3, DEPTH_GATE + 4, shape),
+         rng.integers(32768, 65536, shape), rng.integers(8, 49, shape)],
+        rng.integers(0, 40, shape))
+    rc = np.broadcast_to(np.minimum(ref, 3)[:, None], shape)
+    a1 = (rc + 1) % 4
+    ar = (rc + rng.integers(1, 4, shape)) % 4
+    c = np.zeros(shape + (6,), np.int64)
+    r_ = np.arange(n)[:, None]
+    i_ = np.arange(indiv)[None, :]
+    c[r_, i_, rc] = depth
+    het = rng.integers(0, 1 << 16, shape) % (depth + 1)
+    sweep = rng.integers(0, 6, shape)
+    few = rng.choice([0, 1, CMAX, CMAX + 1], shape)
+    tie = rng.integers(0, 3, shape)
+    # (kind, column, its count, reads taken from the reference column)
+    for k, col, cnt, take in (
+            (2, a1, np.where(depth > 2, het, 0),
+             np.where(depth > 2, het // 2, 0)),
+            (3, ar, rng.integers(0, 4, shape), 0),
+            (4, 4, rng.integers(0, 6, shape), 0),
+            (5, 5, rng.integers(0, 6, shape), 0),
+            (6, (rc + 2) % 4, np.where(depth > 4, depth, 0),
+             np.where(depth > 4, depth - rng.integers(0, 3, shape), 0)),
+            (7, a1, few, few), (8, a1, few % 3, few % 3),
+            (9, ar, rng.integers(0, 4, shape), 0),
+            (10, ar, sweep, sweep), (11, a1, tie, 0),
+            (11, (rc + 2) % 4, tie, 0)):
+        m = kind == k
+        c[r_, i_, np.broadcast_to(col, shape)] += np.where(m, cnt, 0)
+        c[r_, i_, rc] -= np.where(m, take, 0)
+    reads = np.clip(c, 0, 65535).astype(np.uint16)
+    return reads, ref.astype(np.uint8), ctype
+
+
+def screen_margins_f64(reads, ref_int, haploid):
+    """Float64 pass-1 margins of every (site, sample) with the screen's
+    tables (numpy, scipy.special.gammaln): (beam margin: the ref genotype
+    over every alternate the beam may expand; ungated margin: over every
+    alternate), each (S, I)."""
+    import numpy as np
+    from scipy.special import gammaln
+    from pecaller_tpu_torch.caller.device_screen import _tables
+    ta, tota, _ = _tables(haploid)
+    n_sc, _, G, _ = ta.shape
+    ta = ta.reshape(n_sc * 4, G, 6).astype(np.float64)
+    tota = tota.reshape(n_sc * 4, G).astype(np.float64)
+    a1 = gammaln(tota) - gammaln(ta).sum(-1)
+    S, indiv, _ = reads.shape
+    g = np.arange(G)
+    mb = np.empty((S, indiv))
+    ma = np.empty((S, indiv))
+    step = max(1, (1 << 19) // indiv)
+    for lo in range(0, S, step):
+        r = reads[lo:lo + step].astype(np.int64)
+        tot = r[..., :5].sum(-1)
+        ref_b = np.minimum(ref_int[lo:lo + step].astype(np.int64),
+                           3)[:, None]
+        flat = (np.clip(tot, 10, 100) - 10) * 4 + ref_b
+        like = (a1[flat] + gammaln(ta[flat] + r[:, :, None, :]).sum(-1)
+                - gammaln(tota[flat] + (tot + r[..., 5])[..., None]))
+        is_ref = g == ref_b[..., None]
+        blocked = ((((g == 4) | (g == 12)) & (r[..., 4:5] < 3)) |
+                   (((g == 5) | (g == 13)) & (r[..., 5:6] < 3)))
+        like_ref = np.where(is_ref, like, -np.inf).max(-1)
+        mb[lo:lo + step] = like_ref - np.where(is_ref | blocked, -np.inf,
+                                               like).max(-1)
+        ma[lo:lo + step] = like_ref - np.where(is_ref, -np.inf,
+                                               like).max(-1)
+    return mb, ma
+
+
+def screen_contract(codes, ref_codes, reads, ref_int, ctype, haploid):
+    """Hold phase-1 ``codes`` to the screen's contract: no site is EASY
+    unless its float64 margins pass the exact criterion (every active
+    sample's beam margin > 2.3 and, with 4 samples or more, its ungated
+    margin > 0; the bad-base gates do not fire, the reference is A, C,
+    G or T, no sample is deeper than DEPTH_GATE), and ``codes`` equal
+    ``ref_codes`` except at sites where an active sample's float64
+    margin lies within SCREEN_TOL of a threshold (2.3 + BAND; BAND for
+    the ungated margin).  Raises where it does not hold; returns the
+    number of sites whose codes differ."""
+    import numpy as np
+    from pecaller_tpu_torch.caller.device_screen import (BAND, DEPTH_GATE,
+                                                         EASY)
+    mb, ma = screen_margins_f64(reads, ref_int, haploid)
+    r = reads.astype(np.int64)
+    tot = r[..., :5].sum(-1)
+    indiv = reads.shape[1]
+    active = tot > (1 if haploid else 2)
+    exact = mb > 2.3
+    near = np.abs(mb - (2.3 + BAND)) < SCREEN_TOL
+    if indiv >= 4:
+        exact &= ma > 0
+        near |= np.abs(ma - BAND) < SCREEN_TOL
+    bad = (tot.sum(-1) < 8 * indiv) | (
+        (2 * (tot >= 8).sum(-1) < indiv) & (ctype != 2))
+    easy_ok = ((~active | exact).all(-1) & ~bad & (ref_int < 4)
+               & ((tot + r[..., 5]) <= DEPTH_GATE).all(-1))
+    wrong = np.flatnonzero((codes == EASY) & ~easy_ok)
+    if len(wrong):
+        raise AssertionError(f"{len(wrong)} sites EASY against the f64 "
+                             f"criterion, first {int(wrong[0])}")
+    diff = codes != ref_codes
+    far = np.flatnonzero(diff & ~(active & near).any(-1))
+    if len(far):
+        raise AssertionError(f"{len(far)} sites differ outside the "
+                             f"{SCREEN_TOL} band, first {int(far[0])}")
+    return int(diff.sum())
+
+
+def screen_check():
+    """Phase 8b: CallerScreen on the card at one full chunk of 3 samples
+    (2^18 sites) and one of 64 (2^15), on screen_fuzz's counts: phase-0
+    codes bitwise equal to the CPU's and to the native phase 0
+    (host_screen_stats); phase 1 on every site held to screen_contract
+    against the CPU's; each phase's time per chunk (CUDA events) and the
+    screen's own sites/s (host arrays in, codes out)."""
+    import numpy as np
+    import torch
+    from pecaller_tpu_torch.caller.device_screen import (
+        CallerScreen, UNRES, _phase0_chunk, _phase0_tables, _screen_chunk)
+    from pecaller_tpu_torch.caller.native import host_screen_stats
+    dev = torch.device("cuda", 0)
+    held = torch.cuda.memory_allocated(dev)    # as in caller_path
+    out = []
+    for indiv, n in SCREEN_CHUNKS:
+        rng = np.random.default_rng(88 + indiv)
+        reads, ref_int, ctype = screen_fuzz(rng, n, indiv)
+        gpu = CallerScreen(indiv, False)
+        cpu = CallerScreen(indiv, False, device="cpu")
+        if gpu.chunk != n:
+            raise AssertionError(f"chunk {gpu.chunk} != {n}")
+        c0 = gpu.phase0(reads, ref_int, ctype)
+        c0_cpu = cpu.phase0(reads, ref_int, ctype)
+        c0_nat = host_screen_stats(
+            reads, np.ones((n, indiv), np.uint8), ref_int, ctype,
+            _phase0_tables(False), indiv, False, os.cpu_count() or 2,
+            np.zeros((indiv, 501), np.int64), np.zeros(indiv, np.int64),
+            np.zeros(indiv, np.int64), np.zeros(indiv, np.int64))[0]
+        for name, other in (("cpu", c0_cpu), ("native", c0_nat)):
+            if not np.array_equal(c0, other):
+                raise AssertionError(
+                    f"phase 0 at {indiv} samples: {int((c0 != other).sum())}"
+                    f" codes differ from the {name} phase 0")
+        c1 = gpu.phase1(reads, ref_int, ctype)
+        c1_cpu = cpu.phase1(reads, ref_int, ctype)
+        n_band = screen_contract(c1, c1_cpu, reads, ref_int, ctype, False)
+
+        args = (torch.from_numpy(reads.view(np.int16)).to(dev),
+                torch.from_numpy(ref_int).to(dev),
+                torch.from_numpy(ctype).to(dev))
+        ms0 = _timed(lambda: _phase0_chunk(
+            *args, haploid=False, indiv=indiv, ptab=gpu._ptab), 5)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms1 = _timed(lambda: _screen_chunk(
+            *args, haploid=False, ta=gpu._ta, tota=gpu._tota, a1=gpu._a1), 5)
+        peak1 = torch.cuda.max_memory_allocated(dev)
+        gpu(reads, ref_int, ctype)
+        t0 = time.time()
+        codes = gpu(reads, ref_int, ctype)
+        t_call = time.time() - t0
+        out.append(dict(
+            samples=indiv, sites=n, chunk=gpu.chunk,
+            phase0_unres=int((c0 == UNRES).sum()),
+            codes={k: int((codes == v).sum())
+                   for k, v in (("hard", 0), ("easy", 1), ("bad", 2))},
+            phase1_differ_from_cpu_in_band=n_band,
+            phase0_ms=ms0, phase1_ms=ms1, phase1_max_memory_allocated=peak1,
+            screen_sites_per_s=n / t_call))
+    say("screen_check", chunks=out, memory_allocated_at_start=held,
+        fuzz="test_screen kinds, margin sweep, TMAX and DEPTH_GATE edges, "
+        "counts >= 32768, argmax ties, ref 4 and 5, chrY")
+
+
 def _foreign_modules():
     return {m for m in sys.modules
             if any(m == p or m.startswith(p + ".")
@@ -1511,11 +1911,18 @@ def main():
     ap.add_argument("--kernels", action="store_true",
                     help="phases 1-3 only (card, build, kernel check): "
                     "the kernels line with launches null, no result line")
+    ap.add_argument("--caller", action="store_true",
+                    help="phases 1, 8 and 8b only (card, caller, screen "
+                    "contract): no kernels line, no result line")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     before = _foreign_modules()
     import torch
     card_info()
+    if args.caller:
+        caller_path(args.pairs)
+        screen_check()
+        return
     build(sass=args.kernels)
     if args.profile:
         profile_v1(args.pairs)
@@ -1533,6 +1940,8 @@ def main():
         launches["sw_align"] += split_path(MID_PAIRS, host)
         del host
         human_counts()
+        caller_path(args.pairs)
+        screen_check()
     entered = sorted(_foreign_modules() - before)
     if entered:
         raise AssertionError(f"the run imported {entered[:5]}")

@@ -15,13 +15,16 @@ _SOURCES = ["swexact.c", "chain.c", "mate.c"]
 _LIB = None
 
 
-def _build() -> str:
+def build_library(name: str, sources) -> str:
+    """Compile ``sources`` (files of this directory) into
+    build/native/lib<name>_<hash>.so with gcc -O3, once per content
+    hash; returns the library's path."""
     h = hashlib.sha256()
-    srcs = [os.path.join(_HERE, s) for s in _SOURCES]
+    srcs = [os.path.join(_HERE, s) for s in sources]
     for s in srcs:
         with open(s, "rb") as f:
             h.update(f.read())
-    cache = os.path.join(BUILD_DIR, f"libnative_{h.hexdigest()[:16]}.so")
+    cache = os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
     if not os.path.exists(cache):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = cache + f".build{os.getpid()}"
@@ -37,7 +40,7 @@ def load_swexact() -> ctypes.CDLL:
     global _LIB
     if _LIB is not None:
         return _LIB
-    lib = ctypes.CDLL(_build())
+    lib = ctypes.CDLL(build_library("native", _SOURCES))
     u8p = ctypes.POINTER(ctypes.c_uint8)
     i8p = ctypes.POINTER(ctypes.c_int8)
     i32p = ctypes.POINTER(ctypes.c_int32)
