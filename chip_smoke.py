@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--pairs N]
     python3 chip_smoke.py --kernels     # phases 1-3 only, about a minute
     python3 chip_smoke.py --caller      # phases 1, 8 and 8b only
+    python3 chip_smoke.py --scaleout    # phases 1-3 and 9-11
 
 Phases (each prints one line; any failure raises and exits non-zero):
 
@@ -35,8 +36,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      both .mfile dumps byte-equal to the host oracle's, the pileup equal
      up to tie-local placement (tie_local_pileup), the same (read,
      length) multiset of insertion records, K3 launched twice per
-     batch; reads/s, the eager traceback's time, fallbacks, peak device
-     memory
+     batch; reads/s over the first 4 batches, the eager traceback's
+     time, fallbacks, peak device memory
   6. v2.5 path: bench.py's mid-size data (one 47 Mb contig "chr21x",
      seed 2025, 50k 100 bp pairs), made once under .smoke/mid/; the
      exact-key index build, the quartered-key index build (cached as
@@ -82,13 +83,38 @@ Phases (each prints one line; any failure raises and exits non-zero):
      but for sites within 0.15 of a threshold, counted); each phase's ms
      per chunk (CUDA events) and the screen's sites/s
 
-Then a JSON line of the kernels (launches summed over phases 4-7), and
-last the result line {"ok": true, "device": {...}}.  With --kernels:
-phases 1-3, the kernels line with launches null, and no result line.
-With --caller: phases 1, 8 and 8b, and neither line.  Needs no network and
-starts no process that outlives it.  The script and the port import
-nothing of jax nor of the JAX package pecaller_tpu; the run fails if
-either entered sys.modules.
+  9. reads-axis mesh: phase 4's data through `pemapper --device` with
+     mesh_shards 2 on [cuda:0, cuda:0] (run_mapper with a device list):
+     all five artifacts byte-equal to the host oracle, K1 and K2
+     launched; reads/s of the 2-shard engine and of a one-device engine
+     on the same batches (median of 3 after a warm pass each, with the
+     spread), mesh_timing's dispatch and fetch ms a batch, peak device
+     memory; phase 8's cohort with CallerConfig(mesh=2 shards on cuda:0,
+     host_screen=False) byte-equal to the exact engine, sites/s
+  10. genome-sharded octile: phase 6's data; plan_shards(sdx, 2) and
+     build_octile_shards timed, each shard's table bytes; the
+     OctileShardedEngine with both shards on cuda:0, built directly as
+     phase 5 builds v1, through map_files: all five artifacts byte-equal
+     to phase 6's host oracle, K1 and K2 launched; reads/s (median of 3
+     after a warm pass), fallbacks, re-walked ties, peak device memory;
+     what hg38 would need (at least 12 shards)
+  11. multi-process: two processes joined by init_distributed (gloo on
+     localhost), both on cuda:0; run_mapper_distributed on phase 4's
+     reads split into two fastq pairs (the parts' pileups merge to the
+     host oracle's, their .mfile dumps concatenate to its bytes), then
+     run_caller_distributed and merge_caller_parts on phase 8's cohort
+     (.snp, .dist, .base.gz and .piles.gz byte-equal to the exact
+     engine's single run); the wall time of each
+
+Then a JSON line of the kernels (launches summed over phases 4-7, 9 and
+10), and last the result line {"ok": true, "device": {...}}.  With
+--kernels: phases 1-3, the kernels line with launches null, and no result
+line.  With --caller: phases 1, 8 and 8b, and neither line.  With
+--scaleout: phases 1-3 and 9-11, making only the data and the oracles
+those need, then the kernels line (launches of phases 9 and 10) and no
+result line.  Needs no network and starts no process that outlives it.
+The script and the port import nothing of jax nor of the JAX package
+pecaller_tpu; the run fails if either entered sys.modules.
 """
 
 from __future__ import annotations
@@ -111,6 +137,7 @@ MID_LEN = 47_000_000                 # bench.py bench_mid: human chr21 scale
 MID_PAIRS = 50_000
 HUMAN_LEN = 3_100_000_000            # hg38 scale, for phase 7b
 BATCH = 8192
+V1_RATE_BATCHES = 4                # phase 5's reads/s passes (of 13 batches)
 N_ROWS = 125                       # R_ROWS of 100 bp reads: 104 + 2*10 + 1
 # H100 SXM rates used for the bounds (NVIDIA data sheet; 700 W): HBM
 # bytes/s, and integer operations/s at the card's issue rate, 132 SMs x
@@ -1132,13 +1159,16 @@ def v1_path(n_pairs, host):
                              "oracle's (read, length) multiset")
     pileup_equal = got[".pileup.gz"] == want[".pileup.gz"]
 
-    rates, how, per_batch = _rates(eng, batches, dev)
+    # reads/s over the first V1_RATE_BATCHES batches: four passes over
+    # all 13 took ~46 s of the smoke's time limit
+    rates, how, per_batch = _rates(eng, batches[:V1_RATE_BATCHES], dev)
     say("v1_path", pairs=n_pairs, batch=BATCH,
         byte_equal=["out.summary.txt", "r1.fastq.mfile", "r2.fastq.mfile"]
         + ([".pileup.gz"] if pileup_equal else []),
         pileup_rows_tie_shifted=n_tie_rows,
         tie_rotated_insertion_clusters=rotated, insertions=len(ins_v),
         launches=launches, batches=len(batches),
+        rate_batches=len(batches[:V1_RATE_BATCHES]),
         reads_per_s=rates[len(rates) // 2], reads_per_s_passes=rates,
         passes=how, host_s_per_batch=per_batch, n_fallback=n_fallback,
         max_memory_allocated=torch.cuda.max_memory_allocated(dev),
@@ -1626,24 +1656,12 @@ def caller_path(n_pairs, data=DATA):
     import torch
     from pecaller_tpu_torch import cli
     from pecaller_tpu_torch.caller import CallerConfig, run_caller
-    make_data(n_pairs, data)
-    cb, t_data = make_call_data(data)
     threads = os.cpu_count() or 2
     dev = torch.device("cuda", 0)
     # what earlier phases still hold on the card: the peaks below
     # include it
     held = torch.cuda.memory_allocated(dev)
-
-    t0 = time.time()
-    exact = run_caller(CallerConfig(
-        pileup_ext="pileup", sdx_path=os.path.join(cb, "g.sdx"),
-        out_base=os.path.join(cb, "exact"), directory=cb, nthreads=threads,
-        device_screen=False, host_screen=False))
-    t_exact = time.time() - t0
-    want = _call_artifacts(os.path.join(cb, "exact"))
-    if not 0 < exact["n_sites"] == want[".base.gz"].count(b"\n") \
-            == exact["native_sites"]:
-        raise AssertionError("the exact path did not call every site")
+    cb, want, t_data, t_exact = call_oracle(n_pairs, data)
 
     routes = {}
     # (a): the default route, through the command line (the run reads
@@ -1689,6 +1707,7 @@ def caller_path(n_pairs, data=DATA):
         "len(un) * indiv > 65536; not known for this data before the run",
         routes=out, exact_s=t_exact, data_s=t_data,
         memory_allocated_at_start=held)
+    return cb, want
 
 
 def screen_fuzz(rng, n, indiv):
@@ -1832,7 +1851,7 @@ def screen_check():
     import numpy as np
     import torch
     from pecaller_tpu_torch.caller.device_screen import (
-        CallerScreen, UNRES, _phase0_chunk, _phase0_tables, _screen_chunk)
+        CallerScreen, UNRES, _phase0_chunk, _phase0_tables)
     from pecaller_tpu_torch.caller.native import host_screen_stats
     dev = torch.device("cuda", 0)
     held = torch.cuda.memory_allocated(dev)    # as in caller_path
@@ -1864,10 +1883,10 @@ def screen_check():
                 torch.from_numpy(ref_int).to(dev),
                 torch.from_numpy(ctype).to(dev))
         ms0 = _timed(lambda: _phase0_chunk(
-            *args, haploid=False, indiv=indiv, ptab=gpu._ptab), 5)
+            *args, haploid=False, indiv=indiv,
+            ptab=gpu._tabs[dev]["ptab"]), 5)
         torch.cuda.reset_peak_memory_stats(dev)
-        ms1 = _timed(lambda: _screen_chunk(
-            *args, haploid=False, ta=gpu._ta, tota=gpu._tota, a1=gpu._a1), 5)
+        ms1 = _timed(lambda: gpu._fn("phase1", dev)(*args), 5)
         peak1 = torch.cuda.max_memory_allocated(dev)
         gpu(reads, ref_int, ctype)
         t0 = time.time()
@@ -1884,6 +1903,367 @@ def screen_check():
     say("screen_check", chunks=out, memory_allocated_at_start=held,
         fuzz="test_screen kinds, margin sweep, TMAX and DEPTH_GATE edges, "
         "counts >= 32768, argmax ties, ref 4 and 5, chrY")
+
+
+# ---------------------------------------------------------------------------
+# phases 9-11: the scale-out (reads-axis mesh, genome-sharded octile
+# engine, multi-process runs), every shard on cuda:0
+
+HG38 = 3_100_000_000
+
+
+def _card():
+    """The card every shard of phases 9-11 sits on."""
+    import torch
+    return torch.device("cuda", 0)
+
+
+def map_oracle(n_pairs, data=DATA):
+    """The host oracle: `pemapper` on ``data``'s reads without --device,
+    under ``data``/host.  Returns its directory and engine."""
+    from pecaller_tpu_torch import cli
+    from pecaller_tpu_torch.mapper.runner import run_mapper
+    host_dir = _run_dir("host", data)
+    host = run_mapper(cli.parse_pemapper(_argv(host_dir, n_pairs, False,
+                                               data)))
+    return host_dir, host
+
+
+def call_oracle(n_pairs, data=DATA):
+    """Phase 8's cohort and its oracle, the exact native engine on every
+    callable site.  Returns the cohort's directory, the oracle's
+    artifacts, and the seconds of the data and of the oracle."""
+    from pecaller_tpu_torch.caller import CallerConfig, run_caller
+    make_data(n_pairs, data)
+    cb, t_data = make_call_data(data)
+    t0 = time.time()
+    exact = run_caller(CallerConfig(
+        pileup_ext="pileup", sdx_path=os.path.join(cb, "g.sdx"),
+        out_base=os.path.join(cb, "exact"), directory=cb,
+        nthreads=os.cpu_count() or 2, device_screen=False,
+        host_screen=False))
+    t_exact = time.time() - t0
+    want = _call_artifacts(os.path.join(cb, "exact"))
+    if not 0 < exact["n_sites"] == want[".base.gz"].count(b"\n") \
+            == exact["native_sites"]:
+        raise AssertionError("the exact path did not call every site")
+    return cb, want, t_data, t_exact
+
+
+def _gate(what, got, want):
+    diff = [k for k in want if got[k] != want[k]]
+    if diff:
+        raise AssertionError(f"{what}: {diff} differ from the host "
+                             "oracle's")
+
+
+def _spread(rates):
+    return (rates[-1] - rates[0]) / rates[len(rates) // 2]
+
+
+def reads_mesh(n_pairs, host_dir, cb, call_want):
+    """Phase 9: the reads-axis mesh, two shards on cuda:0.  `pemapper
+    ... --device` as phase 4's command line with mesh_shards 2 through
+    run_mapper(device=[cuda:0, cuda:0]): all five artifacts byte-equal
+    to the host oracle; reads/s of the mesh engine and of a one-device
+    engine on the same batches (median of 3 after a warm pass each);
+    the caller on phase 8's cohort with a 2-shard screen mesh
+    (host_screen False) byte-equal to the exact engine.  Returns K1/K2
+    launches of the mapping run."""
+    import torch
+    from pecaller_tpu_torch import cli
+    from pecaller_tpu_torch.caller import CallerConfig, run_caller
+    from pecaller_tpu_torch.formats.index_files import load_index
+    from pecaller_tpu_torch.formats.sdx import read_sdx, read_seq
+    from pecaller_tpu_torch.index.nbr import load_nbr_index
+    from pecaller_tpu_torch.mapper.device_map2 import FusedMapperEngine2
+    from pecaller_tpu_torch.mapper.runner import run_mapper
+    from pecaller_tpu_torch.ops import sw_cuda
+    from pecaller_tpu_torch.parallel.mesh import make_mesh
+
+    dev = _card()
+    d = _run_dir("mesh")
+    cfg = cli.parse_pemapper(_argv(d, n_pairs, True))
+    cfg.mesh_shards = 2
+    torch.cuda.reset_peak_memory_stats(dev)
+    sw_cuda.reset_launches()
+    t0 = time.time()
+    eng = run_mapper(cfg, device=[dev, dev])
+    torch.cuda.synchronize(dev)
+    t_run = time.time() - t0
+    launches = dict(sw_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if eng._n_sh != 2 or len(eng.states) != 2:
+        raise AssertionError("the runner did not build a 2-shard mesh")
+    if not (launches["sw_align_x"] and launches["sw_tb_rows"]):
+        raise AssertionError(f"a kernel of the path never ran: {launches}")
+    want = _artifacts(host_dir)
+    _gate("reads-axis mesh", _artifacts(d), want)
+    mt = dict(eng.mesh_timing)
+    n_fallback, n_tiefix = eng.n_fallback, eng.n_tiefix
+
+    base = os.path.join(DATA, "g")
+    sdx = read_sdx(base + ".sdx")
+    index = load_index(base)
+    single = FusedMapperEngine2(
+        sdx, read_seq(base + ".seq", sdx.genome_size), index,
+        nbr=load_nbr_index(base, index), device=dev, paired=True,
+        min_align=cfg.min_align, min_dist=cfg.min_dist,
+        max_dist=cfg.max_dist, nthreads=cfg.nthreads)
+    batches = _batches(n_pairs)
+    r_one, how, pb_one = _rates(single, batches, dev)
+    del single
+    r_mesh, _, pb_mesh = _rates(eng, batches, dev)
+    del eng
+    torch.cuda.empty_cache()
+
+    cfg_c = CallerConfig(
+        pileup_ext="pileup", sdx_path=os.path.join(cb, "g.sdx"),
+        out_base=os.path.join(cb, "mesh"), directory=cb,
+        nthreads=os.cpu_count() or 2, host_screen=False,
+        mesh=make_mesh(2, 1, [dev, dev]))
+    run_caller(cfg_c)
+    _call_gate("mesh", cfg_c.out_base, call_want)
+    rate, rates, res = _call_passes(lambda: run_caller(cfg_c))
+    say("reads_mesh", shards=2, devices=[str(dev)] * 2, pairs=n_pairs,
+        batch=BATCH, byte_equal=sorted(want), launches=launches,
+        reads_per_s=r_mesh[len(r_mesh) // 2], reads_per_s_passes=r_mesh,
+        spread=_spread(r_mesh), one_device_reads_per_s=r_one[len(r_one) // 2],
+        one_device_reads_per_s_passes=r_one,
+        one_device_spread=_spread(r_one), passes=how,
+        host_s_per_batch=pb_mesh, one_device_host_s_per_batch=pb_one,
+        mesh_dispatch_ms_per_batch=1e3 * mt["dispatch_s"] / mt["batches"],
+        mesh_fetch_ms_per_batch=1e3 * mt["fetch_s"] / mt["batches"],
+        n_fallback=n_fallback, n_tiefix=n_tiefix, max_memory_allocated=peak,
+        seconds=dict(device_run=round(t_run, 1)),
+        caller=dict(shards=2, byte_equal=sorted(call_want),
+                    sites_per_s=rate, sites_per_s_passes=rates,
+                    spread=_spread(rates), sites_on_card=res["screen_sites"]),
+        scaling="every shard on one card: correctness, not scaling")
+    return launches
+
+
+def genome_mesh(n_pairs, host_dir):
+    """Phase 10: the genome-sharded octile engine on phase 6's data, two
+    genome shards on cuda:0, built directly (the runner has no route to
+    it): the shard plan and octile builds timed, each shard's table
+    bytes; `map_files` with phase 6's command line against phase 6's
+    host oracle, all five artifacts byte-equal; reads/s (median of 3
+    after a warm pass).  Returns K1/K2 launches."""
+    import numpy as np
+    import torch
+    from pecaller_tpu_torch import cli
+    from pecaller_tpu_torch.formats.index_files import load_index
+    from pecaller_tpu_torch.formats.sdx import read_sdx, read_seq
+    from pecaller_tpu_torch.index.quarter import OCT_LOCAL_MAX
+    from pecaller_tpu_torch.index.shard import build_octile_shards, plan_shards
+    from pecaller_tpu_torch.mapper.gshard import OctileShardedEngine
+    from pecaller_tpu_torch.mapper.runner import map_files
+    from pecaller_tpu_torch.ops import sw_cuda
+    from pecaller_tpu_torch.parallel.mesh import make_mesh
+
+    dev = _card()
+    base = os.path.join(MID, "g")
+    sdx = read_sdx(base + ".sdx")
+    genome = read_seq(base + ".seq", sdx.genome_size)
+    index = load_index(base)
+    t0 = time.time()
+    plan = plan_shards(sdx, 2)
+    t_plan = time.time() - t0
+    t0 = time.time()
+    shards = build_octile_shards(index, plan)
+    t_build = time.time() - t0
+    table_bytes = [sum(np.asarray(a).nbytes
+                       for a in (s.tagt, s.valt, s.pos, s.qw))
+                   for s in shards]
+    d = _run_dir("gshard", MID)
+    cfg = cli.parse_pemapper(_argv(d, n_pairs, True, MID))
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    eng = OctileShardedEngine(
+        sdx, genome, index, make_mesh(1, 2, [dev, dev]), plan=plan,
+        shards=shards, bisulfite=cfg.bisulfite, min_align=cfg.min_align,
+        min_dist=cfg.min_dist, max_dist=cfg.max_dist, paired=cfg.paired,
+        nthreads=cfg.nthreads)
+    torch.cuda.synchronize(dev)
+    t_upload = time.time() - t0
+    del shards
+    sw_cuda.reset_launches()
+    t0 = time.time()
+    map_files(cfg, eng, sdx, genome)
+    torch.cuda.synchronize(dev)
+    t_run = time.time() - t0
+    launches = dict(sw_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not (launches["sw_align_x"] and launches["sw_tb_rows"]):
+        raise AssertionError(f"a kernel of the path never ran: {launches}")
+    want = _artifacts(host_dir)
+    _gate("genome-sharded octile", _artifacts(d), want)
+    n_fallback, n_tiefix, n_cap = (eng.n_fallback, eng.n_tiefix,
+                                   eng.n_cap_fallback)
+    rates, how, per_batch = _rates(eng, _batches(n_pairs, MID), dev)
+    del eng
+    torch.cuda.empty_cache()
+    per_base = sum(table_bytes) / sdx.genome_size
+    say("genome_mesh", shards=2, devices=[str(dev)] * 2,
+        genome=sdx.genome_size, pairs=n_pairs, batch=BATCH,
+        shard_bases_idx=[int(x) for x in plan.bases_idx],
+        shard_cover_idx=[int(x) for x in plan.cover_idx],
+        table_bytes=table_bytes, byte_equal=sorted(want), launches=launches,
+        reads_per_s=rates[len(rates) // 2], reads_per_s_passes=rates,
+        spread=_spread(rates), passes=how, host_s_per_batch=per_batch,
+        n_fallback=n_fallback, n_tiefix=n_tiefix, n_cap_fallback=n_cap,
+        max_memory_allocated=peak,
+        seconds=dict(plan=round(t_plan, 4), octile_build=round(t_build, 1),
+                     engine_build=round(t_upload, 1),
+                     device_run=round(t_run, 1)),
+        hg38=dict(
+            genome=HG38, min_shards=-(-HG38 // OCT_LOCAL_MAX),
+            table_bytes_at_this_runs_bytes_per_base=int(per_base * HG38),
+            scaling_md_count="~130 GB (pos 99 + nibbles 25 + starts 8)",
+            note="beyond one 80 GB card and beyond a smoke's host build"),
+        scaling="every shard on one card: correctness, not scaling")
+    return launches
+
+
+_PART_SCRIPT = """
+import os, sys
+root, d, pid, coord, what, device = sys.argv[1:7]
+pid = int(pid)
+sys.path.insert(0, root)
+import torch
+torch.set_num_threads(int(sys.argv[9]))       # two processes share the host
+from pecaller_tpu_torch.parallel.distributed import init_distributed
+init_distributed(coord, 2, pid)
+import torch.distributed as dist
+assert dist.get_world_size() == 2 and dist.get_rank() == pid
+if what == "map":
+    from pecaller_tpu_torch.mapper.runner import MapperConfig
+    from pecaller_tpu_torch.parallel.distributed import run_mapper_distributed
+    cfg = MapperConfig(
+        out_base=os.path.join(d, "dist"), sdx_path=sys.argv[7], paired=True,
+        files1=[os.path.join(d, f"a{i}_1.fastq") for i in range(2)],
+        files2=[os.path.join(d, f"a{i}_2.fastq") for i in range(2)],
+        max_dist=500, min_dist=0, min_align=0.9, batch_size=int(sys.argv[8]),
+        nthreads=int(sys.argv[9]), device=True, torch_device=device)
+    run_mapper_distributed(cfg, coord, 2, pid)
+else:
+    from pecaller_tpu_torch.caller import CallerConfig
+    from pecaller_tpu_torch.parallel.distributed import run_caller_distributed
+    cb = sys.argv[7]
+    run_caller_distributed(CallerConfig(
+        pileup_ext="pileup", sdx_path=os.path.join(cb, "g.sdx"),
+        out_base=os.path.join(d, "call"), directory=cb,
+        nthreads=int(sys.argv[9]), device=device), coord, 2, pid)
+bad = [m for m in sys.modules
+       if m == "jax" or m.startswith(("jax.", "pecaller_tpu."))]
+assert not bad, bad
+dist.destroy_process_group()
+print("process", pid, what, "done", flush=True)
+"""
+
+
+def _two_processes(d, what, *extra):
+    """Run _PART_SCRIPT in two processes joined on localhost; kill both
+    if either fails or hangs.  Returns the wall seconds."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        coord = f"localhost:{s.getsockname()[1]}"
+    script = os.path.join(d, "part.py")
+    with open(script, "w") as f:
+        f.write(_PART_SCRIPT)
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, script, ROOT, d, str(p), coord, what,
+         *map(str, extra)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for p in range(2)]
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=600)
+            if p.returncode != 0:
+                raise AssertionError(f"{what} process exited "
+                                     f"{p.returncode}: {out.decode()[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return time.time() - t0
+
+
+def _split_fastq(src, dsts, n_first):
+    """The first ``n_first`` records of ``src`` to dsts[0], the rest to
+    dsts[1]."""
+    with open(src, "rb") as f:
+        lines = f.readlines()
+    for dst, part in zip(dsts, (lines[:4 * n_first], lines[4 * n_first:])):
+        with open(dst, "wb") as f:
+            f.writelines(part)
+
+
+def multi_process(n_pairs, host_dir, cb, call_want):
+    """Phase 11: two processes joined by init_distributed (gloo, on
+    localhost), both on cuda:0.  run_mapper_distributed maps phase 4's
+    reads split into two fastq pairs: the parts' pileups merge to the
+    host oracle's (single-process) pileup and their .mfile dumps to its
+    .mfile bytes.  run_caller_distributed and merge_caller_parts call
+    phase 8's cohort: .snp, .dist and the decompressed .base.gz and
+    .piles.gz byte-equal to the exact engine's single run."""
+    import numpy as np
+    from pecaller_tpu_torch.caller import CallerConfig
+    from pecaller_tpu_torch.formats.pileup import read_pileup
+    from pecaller_tpu_torch.formats.sdx import read_sdx
+    from pecaller_tpu_torch.parallel.distributed import merge_caller_parts
+
+    d = os.path.join(DATA, "dist")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    half = n_pairs // 2
+    for e in (1, 2):
+        _split_fastq(os.path.join(DATA, f"r{e}.fastq"),
+                     [os.path.join(d, f"a{i}_{e}.fastq") for i in range(2)],
+                     half)
+    threads = max(1, (os.cpu_count() or 2) // 2)
+    device = str(_card())
+    t_map = _two_processes(d, "map", device, os.path.join(DATA, "g.sdx"),
+                           BATCH, threads)
+    gs = read_sdx(os.path.join(DATA, "g.sdx")).genome_size
+    merged = np.zeros((gs, 6), np.int64)
+    for p in range(2):
+        pos, cnt = read_pileup(os.path.join(d, f"dist.part{p}.pileup.gz"))
+        merged[pos] += cnt
+    single = np.zeros((gs, 6), np.int64)
+    spos, scnt = read_pileup(os.path.join(host_dir, "out.pileup.gz"))
+    single[spos] += scnt
+    if not single.any() or not np.array_equal(merged, single):
+        raise AssertionError("the parts' pileups do not merge to the "
+                             "single run's")
+    for e in (1, 2):
+        parts = b"".join(
+            open(os.path.join(d, f"a{i}_{e}.fastq.mfile"), "rb").read()
+            for i in range(2))
+        with open(os.path.join(host_dir, f"r{e}.fastq.mfile"), "rb") as f:
+            if parts != f.read():
+                raise AssertionError(f"the parts' r{e} .mfile differ from "
+                                     "the single run's")
+
+    t_call = _two_processes(d, "call", device, cb, BATCH, threads)
+    merge_caller_parts(CallerConfig(
+        pileup_ext="pileup", sdx_path=os.path.join(cb, "g.sdx"),
+        out_base=os.path.join(d, "call"), directory=cb), 2)
+    got = _call_artifacts(os.path.join(d, "call"))
+    diff = [k for k in call_want if got[k] != call_want[k]]
+    if diff:
+        raise AssertionError(f"the caller's merged parts: {diff} differ "
+                             "from the single run's")
+    say("multi_process", processes=2, backend="gloo",
+        devices=[device] * 2,
+        mapper=dict(pairs=n_pairs, files=2, merged_equal=[
+            "pileup", "r1.fastq.mfile", "r2.fastq.mfile"],
+            wall_s=round(t_map, 1)),
+        caller=dict(byte_equal=sorted(call_want), wall_s=round(t_call, 1)),
+        note="wall includes each process's start, index load and writers")
 
 
 def _foreign_modules():
@@ -1914,6 +2294,10 @@ def main():
     ap.add_argument("--caller", action="store_true",
                     help="phases 1, 8 and 8b only (card, caller, screen "
                     "contract): no kernels line, no result line")
+    ap.add_argument("--scaleout", action="store_true",
+                    help="phases 1-3 and 9-11 (reads-axis mesh, genome "
+                    "shards, two processes) with the data and oracles "
+                    "they need: the kernels line, no result line")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     before = _foreign_modules()
@@ -1930,6 +2314,17 @@ def main():
     kres = kernel_check()
     if args.kernels:
         launches = dict.fromkeys(REPLACES)
+    elif args.scaleout:
+        make_data(args.pairs)
+        host_dir, _ = map_oracle(args.pairs)
+        cb, call_want, _, _ = call_oracle(args.pairs)
+        launches = reads_mesh(args.pairs, host_dir, cb, call_want)
+        make_data(MID_PAIRS, data=MID, length=MID_LEN, name="chr21x",
+                  seed=2025)
+        mid_host, _ = map_oracle(MID_PAIRS, MID)
+        for k, v in genome_mesh(MID_PAIRS, mid_host).items():
+            launches[k] += v
+        multi_process(args.pairs, host_dir, cb, call_want)
     else:
         launches, host = main_path(args.pairs)
         launches["sw_align"] += v1_path(args.pairs, host)["sw_align"]
@@ -1940,8 +2335,15 @@ def main():
         launches["sw_align"] += split_path(MID_PAIRS, host)
         del host
         human_counts()
-        caller_path(args.pairs)
+        cb, call_want = caller_path(args.pairs)
         screen_check()
+        host_dir = os.path.join(DATA, "host")
+        for k, v in reads_mesh(args.pairs, host_dir, cb, call_want).items():
+            launches[k] += v
+        for k, v in genome_mesh(MID_PAIRS,
+                                os.path.join(MID, "host")).items():
+            launches[k] += v
+        multi_process(args.pairs, host_dir, cb, call_want)
     entered = sorted(_foreign_modules() - before)
     if entered:
         raise AssertionError(f"the run imported {entered[:5]}")
@@ -1952,7 +2354,7 @@ def main():
          "plain_ms": kres[k]["plain_ms"], "bound_ms": kres[k]["bound"][0],
          "bound_by": kres[k]["bound"][1], "library_ms": None}
         for k in REPLACES]}), flush=True)
-    if args.kernels:
+    if args.kernels or args.scaleout:
         return
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

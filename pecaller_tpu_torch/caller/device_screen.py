@@ -310,23 +310,22 @@ def _screen_chunk(reads, ref_int, ctype, *, haploid: bool, ta, tota, a1):
 
 
 class CallerScreen:
-    """Chunked site screen on one torch device.  Call with host numpy
-    arrays; codes come back as numpy.
+    """Chunked site screen on one torch device, or over a device mesh.
+    Call with host numpy arrays; codes come back as numpy.
 
-    The tables go to the device once.  A chunk (2^21 / indiv sites, a
+    The tables go to each device once.  A chunk (2^21 / indiv sites, a
     power of two in [2^13, 2^18], bounding the (S, I, 14, 6) f32 working
     set) goes up from pinned staging buffers and its codes come back
-    with one synchronisation.  ``sites`` counts the sites each phase
-    took on the device.
+    with one synchronisation.  With ``mesh`` (``parallel.mesh.make_mesh``)
+    a chunk's sites split into contiguous parts, one a mesh device, and
+    the parts' codes are concatenated: the screen is independent per
+    site.  ``sites`` counts the sites each phase took on the devices.
     """
 
     def __init__(self, indiv: int, haploid: bool, chunk: int | None = None,
                  mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the caller screen on a device mesh (ROADMAP queue 1, "
-                "item 8) is not yet ported")
-        self.device = resolve_device(device)
+        self.devices = (mesh.flat if mesh is not None
+                        else [resolve_device(device)])
         self.indiv = indiv
         self.haploid = haploid
         if chunk is None or chunk <= 8192:
@@ -337,12 +336,13 @@ class CallerScreen:
         self.chunk = chunk
         ta, tota, a1 = _tables(haploid)
         n_sc, _, G, _ = ta.shape
-        dev = self.device
-        self._ta = torch.from_numpy(ta.reshape(n_sc * 4, G, 6)).to(dev)
-        self._tota = torch.from_numpy(tota.reshape(n_sc * 4, G)).to(dev)
-        self._a1 = torch.from_numpy(a1.reshape(n_sc * 4, G)).to(dev)
-        self._ptab = torch.from_numpy(_phase0_tables(haploid)).to(dev)
-        pin = dev.type == "cuda"
+        host = dict(ta=torch.from_numpy(ta.reshape(n_sc * 4, G, 6)),
+                    tota=torch.from_numpy(tota.reshape(n_sc * 4, G)),
+                    a1=torch.from_numpy(a1.reshape(n_sc * 4, G)),
+                    ptab=torch.from_numpy(_phase0_tables(haploid)))
+        self._tabs = {d: {k: v.to(d) for k, v in host.items()}
+                      for d in dict.fromkeys(self.devices)}
+        pin = any(d.type == "cuda" for d in self.devices)
         self._stage = (
             torch.empty((chunk, indiv, 6), dtype=torch.int16,
                         pin_memory=pin),
@@ -350,24 +350,39 @@ class CallerScreen:
             torch.empty(chunk, dtype=torch.uint8, pin_memory=pin))
         self.sites = {"phase0": 0, "phase1": 0}
 
-    def _run(self, fn, reads, ref_int, ctype) -> np.ndarray:
-        """``fn`` over the chunks of host arrays: uint16 counts up as
-        int16 bits from the staging buffers, uint8 codes back."""
+    def _fn(self, phase: str, dev):
+        """The chunk function of ``phase`` with ``dev``'s tables."""
+        t = self._tabs[dev]
+        if phase == "phase0":
+            return functools.partial(_phase0_chunk, haploid=self.haploid,
+                                     indiv=self.indiv, ptab=t["ptab"])
+        return functools.partial(_screen_chunk, haploid=self.haploid,
+                                 ta=t["ta"], tota=t["tota"], a1=t["a1"])
+
+    def _run(self, phase, reads, ref_int, ctype) -> np.ndarray:
+        """``phase`` over the chunks of host arrays: uint16 counts up as
+        int16 bits from the staging buffers, each chunk in one contiguous
+        part a device, uint8 codes back."""
         n = len(ref_int)
         out = np.empty(n, dtype=np.uint8)
         rd_s, ri_s, ct_s = self._stage
         rd_h, ri_h, ct_h = rd_s.numpy(), ri_s.numpy(), ct_s.numpy()
         reads16 = reads.view(np.int16)
+        fns = [self._fn(phase, d) for d in self.devices]
+        P = len(self.devices)
         for lo in range(0, n, self.chunk):
             m = min(n - lo, self.chunk)
             rd_h[:m] = reads16[lo:lo + m]
             ri_h[:m] = ref_int[lo:lo + m]
             ct_h[:m] = ctype[lo:lo + m]
-            codes = fn(*(t[:m].to(self.device, non_blocking=True)
-                         for t in self._stage))
+            cuts = [m * p // P for p in range(P + 1)]
+            codes = [fn(*(t[a:b].to(d, non_blocking=True)
+                          for t in self._stage))
+                     for fn, d, a, b in zip(fns, self.devices, cuts,
+                                            cuts[1:]) if b > a]
             # the one synchronisation of the chunk: the staging buffers
             # are free again once the codes are back
-            out[lo:lo + m] = codes.cpu().numpy()
+            out[lo:lo + m] = torch.cat([c.cpu() for c in codes]).numpy()
         return out
 
     def __call__(self, reads: np.ndarray, ref_int: np.ndarray,
@@ -387,9 +402,7 @@ class CallerScreen:
                ctype: np.ndarray) -> np.ndarray:
         """The integer phase 0 alone: EASY/BAD/HARD codes, UNRES for the
         sites phase 1 must decide."""
-        out = self._run(functools.partial(
-            _phase0_chunk, haploid=self.haploid, indiv=self.indiv,
-            ptab=self._ptab), reads, ref_int, ctype)
+        out = self._run("phase0", reads, ref_int, ctype)
         self.sites["phase0"] += len(out)
         return out
 
@@ -398,8 +411,6 @@ class CallerScreen:
         """The f32 lgamma screen alone, for sites phase 0 (on the device
         or the host native phase 0 in native/screen.c) left UNRES.
         Returns EASY/BAD/HARD codes."""
-        out = self._run(functools.partial(
-            _screen_chunk, haploid=self.haploid, ta=self._ta,
-            tota=self._tota, a1=self._a1), reads, ref_int, ctype)
+        out = self._run("phase1", reads, ref_int, ctype)
         self.sites["phase1"] += len(out)
         return out

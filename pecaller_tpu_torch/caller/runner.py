@@ -7,7 +7,8 @@ see pecaller.c:226-1146 for the orchestration being mirrored.
 
 Counterpart of ``pecaller_tpu/caller/runner.py``.  The site screen
 (caller/device_screen.py) runs on the torch device ``CallerConfig.device``
-names, the first CUDA device unless the caller asks for the CPU; a
+names, the first CUDA device unless the caller asks for the CPU (or on
+the devices of ``CallerConfig.mesh``); a
 screen that cannot be built or launched is an error, never a quiet drop
 to the exact path (``device_screen=False`` asks for that path).
 """
@@ -98,8 +99,9 @@ class CallerConfig:
     # False for distributed parts > 0 so artifact concatenation yields
     # the single-process byte stream
     write_header: bool = True
-    # device mesh for the screen's phase-0/phase-1 programs: not yet
-    # ported (ROADMAP queue 1, item 8): anything but None raises
+    # device mesh (parallel.mesh.make_mesh) for the screen's phase-0 and
+    # phase-1 programs: each chunk's sites split over its devices (then
+    # ``device`` is not used)
     mesh: object = None
     # torch device of the site screen; None: the first CUDA device
     # (raises where there is none), "cpu" on request

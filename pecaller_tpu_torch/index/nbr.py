@@ -34,6 +34,7 @@ genomes keep the direct CSR path.
 
 from __future__ import annotations
 
+import ctypes
 import os
 
 import numpy as np
@@ -79,67 +80,54 @@ def _mix2(x):
     return x
 
 
-def build_cuckoo(nkeys: np.ndarray, val_start: np.ndarray,
-                 max_rounds: int = 400, min_tb: int | None = None):
-    """Build the 2-table cuckoo rank table.  Returns (tagt, valt, tb)
-    or None if placement fails (caller keeps the binary-search path).
+def cuckoo_place(keys: np.ndarray, starts: np.ndarray, tagbits: np.ndarray,
+                 min_tb: int | None = None, max_rounds: int = 400):
+    """Place unique uint32 ``keys`` with their value words ``starts`` and
+    tag bits (abundant << 30 | count << 22) into the 2-table cuckoo rank
+    table.  Returns (tagt, valt, tb), or None if placement fails (the
+    caller keeps the binary-search path).
 
-    Insertion is vectorized: each round writes all pending keys with
-    first-come-wins (reversed fancy assignment), re-pends the losers and
-    the displaced occupants with the table flipped.  At <=45%% load this
-    converges in a few dozen geometric rounds.
-    """
-    nn = len(nkeys)
+    The placement is native (native/cuckoo.c): the reference's
+    vectorized rounds, each writing all pending keys first-come-wins and
+    re-pending the losers and the displaced occupants on the other
+    table, run one key at a time with the same outcome.  At <=45%% load
+    this converges in a few dozen geometric rounds."""
+    from ..native.build import load_swexact, ptr
+    nn = len(keys)
     tb = 10 if min_tb is None else max(10, min_tb)
     while (1 << tb) * 10 < nn * 11:          # per-table load <= ~0.55/2
         tb += 1
+    if tb > 31:
+        raise ValueError(f"cuckoo table of {nn} keys needs tb {tb} > 31")
     T = 1 << tb
     tagt = hp_empty(2 * T, np.uint32)
-    tagt[:] = 0
     valt = hp_empty(2 * T, np.uint32)
-    valt[:] = 0
-    keysc = hp_empty(2 * T, np.uint32)
+    k = np.ascontiguousarray(keys, np.uint32)
+    st = np.ascontiguousarray(starts, np.uint32)
+    bits = np.ascontiguousarray(tagbits, np.uint32)
+    u32 = ctypes.c_uint32
+    rc = load_swexact().cuckoo_place(
+        ptr(k, u32), ptr(st, u32), ptr(bits, u32), nn, tb, max_rounds,
+        ptr(tagt, u32), ptr(valt, u32))
+    if rc < 0:
+        raise MemoryError("cuckoo placement ran out of memory")
+    return (tagt, valt, tb) if rc == 0 else None
 
-    if nn == 0:
-        return tagt, valt, tb
 
+def build_cuckoo(nkeys: np.ndarray, val_start: np.ndarray,
+                 max_rounds: int = 400, min_tb: int | None = None):
+    """The cuckoo rank table of an nbr index's sorted keys: each key's
+    start, saturated count and abundant flag from ``val_start``
+    (``cuckoo_place``)."""
     mask31 = np.uint32((1 << 31) - 1)
-    k = np.asarray(nkeys, np.uint32)
     v0 = np.asarray(val_start[:-1])
     v1 = np.asarray(val_start[1:])
     start = (v0 & mask31).astype(np.uint32)
     cnt = np.minimum((v1 & mask31).astype(np.int64) - start.astype(np.int64),
                      255).astype(np.uint32)
     ab = (v0 >> np.uint32(31)).astype(np.uint32)
-    tab = np.zeros(nn, np.uint8)
-
-    for _ in range(max_rounds):
-        m = np.where(tab == 0, _mix1(k), _mix2(k))
-        slot = tab.astype(np.int64) * T + (m & np.uint32(T - 1))
-        occ_tag = tagt[slot]
-        occ_val = valt[slot]
-        occ_key = keysc[slot]
-        occupied = (occ_tag >> np.uint32(31)) != 0
-        tagw = (np.uint32(1 << 31) | (ab << np.uint32(30))
-                | (cnt << np.uint32(22)) | (m >> np.uint32(tb)))
-        rs = slot[::-1]
-        tagt[rs] = tagw[::-1]
-        valt[rs] = start[::-1]
-        keysc[rs] = k[::-1]
-        won = keysc[slot] == k
-        ev = occupied & won
-        lost = ~won
-        nk = np.concatenate([k[lost], occ_key[ev]])
-        if len(nk) == 0:
-            return tagt, valt, tb
-        nstart = np.concatenate([start[lost], occ_val[ev]])
-        ncnt = np.concatenate(
-            [cnt[lost], (occ_tag[ev] >> np.uint32(22)) & np.uint32(0xFF)])
-        nab = np.concatenate(
-            [ab[lost], (occ_tag[ev] >> np.uint32(30)) & np.uint32(1)])
-        ntab = np.concatenate([1 - tab[lost], 1 - tab[ev]])
-        k, start, cnt, ab, tab = nk, nstart, ncnt, nab, ntab
-    return None
+    return cuckoo_place(nkeys, start, (ab << np.uint32(30))
+                        | (cnt << np.uint32(22)), min_tb, max_rounds)
 
 
 class NbrIndex:

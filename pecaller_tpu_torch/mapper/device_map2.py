@@ -27,6 +27,7 @@ those of the reference's wrapping uint32 counters.
 from __future__ import annotations
 
 import ctypes
+import time
 import warnings
 from dataclasses import dataclass
 
@@ -35,7 +36,7 @@ import torch
 
 from ..device import resolve_device
 from ..index.nbr import NBR_HI_BITS, NbrIndex
-from ..index.quarter import MARKER, SUB_BITS, QuarterIndex
+from ..index.quarter import MARKER, OCT_SUB_BITS, SUB_BITS, QuarterIndex
 from ..native.build import ptr as _ptr
 from ..ops import sw2
 from ..ops.encode import IDEPTH
@@ -201,17 +202,57 @@ class QuarterDeviceIndex:
                      _as_i32(qw).to(self.device))
 
 
+class OctileDeviceIndex:
+    """Device tensors of one genome shard's OctileIndex (index/quarter.py)
+    and the octile probe's parameters ``t1`` and ``rcap``, as for
+    ``QuarterDeviceIndex``; the spill tier takes ``max(2048, (NF8 // 4
+    + 255) & ~255)`` lookups of the step's NF8 = U x 2 x S x 8.  ``args``
+    lists (tagt, valt, pos, qw) as int32 bit patterns.  ``pad_entries``
+    pads pos and qw to the longest shard's entry count (plus ``rcap + 8``
+    slack rows), as the reference stacks its shards: the probe's gather
+    clamps read that length; ``pad_tb`` is the shards' common table
+    size, checked."""
+
+    mode = "octile"
+    hv = 0
+
+    def __init__(self, oi, device, t1: int = 4, rcap: int = 12,
+                 pad_entries: int | None = None, pad_tb: int | None = None):
+        self.device = torch.device(device)
+        self.t1, self.rcap = t1, rcap
+        self.n_keys = 0
+        if pad_tb is not None and pad_tb != oi.tb:
+            raise ValueError("shards must be built with a common tb")
+        self.tb = oi.tb
+        self.base = int(oi.base)
+        self.owned_len = int(oi.owned_len)
+        self.cover_len = int(oi.cover_len)
+        pad = rcap + 8
+        E = len(oi.pos)
+        tgt = (E if pad_entries is None else pad_entries) + pad
+        pos = np.full(tgt, MARKER, np.int32)
+        pos[:E] = np.asarray(oi.pos)
+        qw8 = np.zeros(((tgt + 3) // 4 + 2) * 4, np.uint8)
+        qw8[:E] = np.asarray(oi.qw).view(np.uint8)[:E]
+        self.args = tuple(_as_i32(a).to(self.device) for a in (
+            oi.tagt, oi.valt, pos, qw8.view(np.uint32)))
+
+
 @dataclass
 class DeviceState:
     """Everything the step reads besides the batch: index tensors, the
     packed genome (2-bit code and N/exotic mask words as uint32 values
-    in int64), contig starts, and the flat pileup counters."""
-    dnbr: NbrDeviceIndex | QuarterDeviceIndex
+    in int64), contig starts, and the flat pileup counters.  A genome
+    shard's state (mapper/gshard.py) also holds its local-coordinate
+    frame ``gctx`` (int64 [base_idx, base_seq, own_lo, own_hi, c_lo],
+    index/shard.py)."""
+    dnbr: NbrDeviceIndex | QuarterDeviceIndex | OctileDeviceIndex
     gcode: torch.Tensor
     gmask: torch.Tensor
     ist: torch.Tensor
     st_pad: torch.Tensor
     dev_counts: torch.Tensor
+    gctx: torch.Tensor | None = None
 
 
 def carry_state(index: NbrIndex | QuarterIndex, cw: np.ndarray,
@@ -294,12 +335,14 @@ def find_chrom(st_pad, pos, n_contigs, chrom_steps):
     return result
 
 
-def windows(st_pad, ist, spots, lens_u, n_contigs, chrom_steps):
+def windows(st_pad, ist, spots, lens_u, n_contigs, chrom_steps, c_shift=0):
     """Candidate locus -> clamped seq-coordinate window (start, blen)
-    (engine._windows, pemapper.c:1047-1081)."""
+    (engine._windows, pemapper.c:1047-1081).  ``c_shift``: a genome
+    shard's first contig, whose accumulated +15/contig padding local
+    seq coordinates leave out."""
     chrom = find_chrom(st_pad, spots, n_contigs, chrom_steps).clamp(
         0, n_contigs - 1)
-    extra = 15 * chrom
+    extra = 15 * (chrom - c_shift)
     start = torch.maximum(ist[chrom] + extra,
                           torch.clamp(extra + spots - MISALIGN_SLOP, min=0))
     end = torch.minimum(ist[chrom + 1] + extra,
@@ -395,6 +438,18 @@ def prep_reads_dev(seqs, lens):
         k *= 2
     xr = torch.where(inlen, xr, 0).to(torch.uint8)
     return xf, xr, skip, exotic
+
+
+def run_alone(gen):
+    """Run a step generator (``FusedStep2.run``) that meets no collective
+    to its end and return its value.  A step with a ``comm`` yields at
+    every collective and runs under ``parallel.mesh.lockstep``."""
+    try:
+        req = next(gen)
+    except StopIteration as stop:
+        return stop.value
+    gen.close()
+    raise RuntimeError(f"collective {req[0]!r} outside a genome mesh")
 
 
 def first_argmax(mask):
@@ -538,14 +593,27 @@ class FusedStep2(DecideLayer):
     insertion records [unit, gpos, jstart, len, 0, 0] with the record
     count in the tail row; then the walk-tie records [unit, gstart,
     blen, orient, bt_k, bt_i] with their count in the tail row.
-    ``state.dev_counts`` is updated in place."""
+    ``state.dev_counts`` is updated in place.
 
-    def __init__(self, dnbr: NbrDeviceIndex | QuarterDeviceIndex, *,
-                 paired: bool, bisulfite: bool, min_dist: int, max_dist: int,
-                 n_contigs: int, B: int, M: int, N: int, s_max: int,
-                 ins_cap: int = INS_CAP, tie_cap: int = TIE_CAP,
-                 max_rlen: int | None = None):
+    ``comm`` (genome-sharded mode, mapper/gshard.py; None elsewhere): the
+    collectives of one genome shard (``parallel.mesh.ShardComm``).  The
+    step then runs on the shard's octile index and genome slice in local
+    coordinates (``state.gctx``) and meets its shards at the reference's
+    collectives (pemapper's global index and decide): the chain
+    ratchet's pmax, the global per-probe and kept-candidate psums, the
+    fallback pmax and the all_gather of every shard's top list into the
+    decide, the tie-routing pmax, the psum of the global .mfile
+    positions, and the tie-cap overflow pmax.  ``run`` is the step as a
+    generator that yields at each of them; ``__call__`` runs it where
+    nothing is sharded."""
+
+    def __init__(self, dnbr, *, paired: bool, bisulfite: bool,
+                 min_dist: int, max_dist: int, n_contigs: int, B: int,
+                 M: int, N: int, s_max: int, ins_cap: int = INS_CAP,
+                 tie_cap: int = TIE_CAP, max_rlen: int | None = None,
+                 comm=None):
         self.dnbr = dnbr
+        self.comm = comm
         self.dev = dnbr.device
         self.paired = paired
         self.bisulfite = bisulfite
@@ -561,12 +629,13 @@ class FusedStep2(DecideLayer):
         # units the quarter probe's caps (spill budget, rcap) sent to the
         # host, summed on the device over the step's calls
         self.n_cap_fb = torch.zeros((), dtype=I64, device=self.dev)
-        if dnbr.mode == "quarter":
-            # expected heavy fraction ~ P(run > T1), ~15% at 47 Mb, and
-            # reads cluster within a batch, so the spill budget needs
-            # real margin (a tight one sends batch tails to the host)
-            nf4 = self.U * 2 * s_max * 4
-            self.HV = dnbr.hv or max(2048, (nf4 // 4 + 255) & ~255)
+        if dnbr.mode in ("quarter", "octile"):
+            # expected heavy fraction ~ P(run > T1), ~15% at 47 Mb on the
+            # quarter index, and reads cluster within a batch, so the
+            # spill budget needs real margin (a tight one sends batch
+            # tails to the host): a quarter of the batch's lookups
+            nf = self.U * 2 * s_max * (4 if dnbr.mode == "quarter" else 8)
+            self.HV = dnbr.hv or max(2048, (nf // 4 + 255) & ~255)
         self.R_ROWS = min(N, (max_rlen or M) + 2 * MISALIGN_SLOP + 1)
         self.chrom_steps = max(3, int(np.ceil(np.log2(
             max(n_contigs, 2)))) + 3)
@@ -685,49 +754,47 @@ class FusedStep2(DecideLayer):
                               device=self.dev)
             tail[torch.where(h_ok, hsrc, NF)] = hpos      # row NF: dump
             pos = torch.cat([pos, tail[:NF].reshape(U, 2, S, T2)], dim=-1)
-        return self.chain_dedup_select(pos, seg_tot, seg_over, heavy_over,
-                                       offsets, n_segs, min_match0, skip)
+        return run_alone(self.chain_dedup_select(
+            pos, seg_tot, seg_over, heavy_over, offsets, n_segs, min_match0,
+            skip))
 
     @staticmethod
-    def _ham_filter(pe_raw, qb_e, qb_probe, qsel, valid):
-        """Base-level Hamming filter of the dropped-quarter byte and the
+    def _ham_filter(pe_raw, qb_e, qb_probe, qsel, valid, bits):
+        """Base-level Hamming filter of an entry's dropped part (a
+        quarter's byte, ``bits`` 8, or an octile's nibble, 4) and the
         abundance-marker poisoning: (position or POS_PAD, poison)."""
-        x = (qb_e ^ qb_probe) & 0xFF
-        f = (x | (x >> 1)) & 0x55
-        nm = (f & 1) + ((f >> 2) & 1) + ((f >> 4) & 1) + ((f >> 6) & 1)
+        x = (qb_e ^ qb_probe) & ((1 << bits) - 1)
+        f = x | (x >> 1)
+        nm = sum((f >> b) & 1 for b in range(0, bits, 2))
         is_mark = valid & (pe_raw >= MARKER)
         ok = (nm == 1) | ((nm == 0) & (qsel == 0))
         cand = valid & ~is_mark & ok
         return torch.where(cand, pe_raw, POS_PAD), is_mark & (nm <= 1)
 
-    def seed_quarter(self, xcode_f, xcode_r, offsets, n_segs, min_match0,
-                     skip):
-        """Seed probing on the quartered-key index ("v2.5"), (U, ...)
-        unit-major: 4 projection lookups per probe enumerate the
-        Hamming<=1 candidate set of pemapper's fill_mers
-        (pemapper.c:1969-2003); index/quarter.py has the layout."""
-        U, S, seg_cap = self.U, self.S, SEG_CAP
+    def _probe_runs(self, start, cnt, qb_p, n_segs, skip):
+        """The candidates of each probe's P projection runs, on the
+        quartered-key index (P 4, a byte a dropped quarter) or a genome
+        shard's octile index (P 8, a nibble a dropped group): ``start``,
+        ``cnt`` (saturated at 255) and the probe's dropped part ``qb_p``
+        are (U, 2, S, P).  An inline tier gathers the first t1 entries of
+        every run, a spill tier the rest of the runs longer than t1 (up
+        to rcap), compacted over the batch; the dropped parts ride in
+        ``qw``, a byte an entry.  Returns (candidate positions (U, 2, S,
+        P x rcap), POS_PAD where none, the candidates a probe, and the
+        units the caps send to the host: a spill budget overrun or an
+        unpoisoned run past rcap)."""
+        U, S = self.U, self.S
+        P = start.shape[-1]
+        bits = 32 // P
         dq = self.dnbr
-        starts_t, cnt_t, epos, eqw = dq.args
+        _, _, epos, eqw = dq.args
         T1, T2E = dq.t1, dq.rcap - dq.t1
         emax = max(epos.shape[0] - 1, 0)
         wmax = max(eqw.shape[0] - 1, 0)
-        keys2 = self.make_keys2(xcode_f, xcode_r, offsets)
-
-        # per-quarter projection lookup: (U, 2, S, 4)
-        sh_q = (3 - self._ar(4)) * 8
-        k4 = keys2[..., None]
-        qb_p = (k4 >> sh_q) & 0xFF
-        # two sub-width shifts, as the reference's uint32 program shifts
-        # (k >> 24) >> 8 where k >> 32 is undefined
-        sub = (((k4 >> sh_q) >> 8) << sh_q) | (k4 & ((1 << sh_q) - 1))
-        base = (self._ar(4) << SUB_BITS) | sub
-        start = starts_t[base].to(I64)
-        cnt = cnt_t[base].to(I64)                   # saturated at 255
 
         # inline tier: the first T1 entries of every run
         jt1 = self._ar(T1)
-        v1 = jt1 < cnt[..., None]                    # (U, 2, S, 4, T1)
+        v1 = jt1 < cnt[..., None]                    # (U, 2, S, P, T1)
         pe1 = epos[(start[..., None] + jt1).clamp(0, emax)]
         w0i = start >> 2
         w0 = _u32(eqw[w0i.clamp(0, wmax)])
@@ -736,19 +803,19 @@ class FusedStep2(DecideLayer):
         qb1 = torch.where(b1 < 4, (w0[..., None] >> (b1.clamp(0, 3) * 8)),
                           (w1[..., None] >> ((b1 - 4).clamp(0, 3) * 8))
                           ) & 0xFF
-        qsel4 = self._ar(4)[None, None, None, :, None]
-        pos1, poison1 = self._ham_filter(pe1, qb1, qb_p[..., None], qsel4,
-                                         v1)
+        qsel = self._ar(P)[None, None, None, :, None]
+        pos1, poison1 = self._ham_filter(pe1, qb1, qb_p[..., None], qsel,
+                                         v1, bits)
 
         # spill tier: the runs longer than T1, compacted over the batch
         heavy = (cnt > T1).reshape(-1)
-        NF4 = U * 2 * S * 4
+        NF = U * 2 * S * P
         HV = self.HV
         hc = torch.cumsum(heavy.to(I64), 0)
         n_heavy = hc[-1]
-        heavy_over = (hc.reshape(U, 2 * S * 4) > HV).any(dim=1)
+        heavy_over = (hc.reshape(U, 2 * S * P) > HV).any(dim=1)
         hsrc = vsearch_ge(hc, self._ar(HV) + 1,
-                          _ceil_log2(NF4 + 1)).clamp(0, NF4 - 1)
+                          _ceil_log2(NF + 1)).clamp(0, NF - 1)
         h_ok = self._ar(HV) < n_heavy
         hstart = start.reshape(-1)[hsrc]
         hcnt = cnt.reshape(-1)[hsrc]
@@ -765,45 +832,129 @@ class FusedStep2(DecideLayer):
             w = _u32(eqw[(w2i + j).clamp(0, wmax)])
             qb2 = torch.where(wsel == j, (w[:, None] >> bsh) & 0xFF, qb2)
         pos2, poison2 = self._ham_filter(pe2, qb2, hqb_p[:, None],
-                                         (hsrc & 3)[:, None], v2)
-        tgt = torch.where(h_ok, hsrc, NF4)                # row NF4: dump
-        tail = torch.full((NF4 + 1, T2E), POS_PAD, dtype=I32,
+                                         (hsrc % P)[:, None], v2, bits)
+        tgt = torch.where(h_ok, hsrc, NF)                 # row NF: dump
+        tail = torch.full((NF + 1, T2E), POS_PAD, dtype=I32,
                           device=self.dev)
         tail[tgt] = pos2
-        poison_sp = torch.zeros(NF4 + 1, dtype=torch.bool, device=self.dev)
+        poison_sp = torch.zeros(NF + 1, dtype=torch.bool, device=self.dev)
         poison_sp[tgt] = poison2.any(dim=1)
 
         # runs longer than rcap cannot be enumerated: the unit falls back
         # to the exact host engine unless the probe is poisoned anyway
-        poison_q = poison1.any(-1) | poison_sp[:NF4].reshape(U, 2, S, 4)
+        poison_q = poison1.any(-1) | poison_sp[:NF].reshape(U, 2, S, P)
         poison_probe = poison_q.any(-1)                    # (U, 2, S)
         seg_in = (self._ar(S)[None, :] < n_segs[:, None])[:, None, :]
         enum_probe = (cnt > (T1 + T2E)).any(-1)
         enum_fb = (enum_probe & ~poison_probe & seg_in).any(dim=2).any(dim=1)
-        self.n_cap_fb += ((heavy_over | enum_fb) & (skip == 0)).sum()
+        cap_fb = heavy_over | enum_fb
+        self.n_cap_fb += (cap_fb & (skip == 0)).sum()
 
-        # merge, ascending sort, keep seg_cap
-        W = 4 * (T1 + T2E)
-        allpos = torch.cat([pos1, tail[:NF4].reshape(U, 2, S, 4, T2E)],
-                           dim=-1).reshape(U, 2, S, W)
+        allpos = torch.cat([pos1, tail[:NF].reshape(U, 2, S, P, T2E)],
+                           dim=-1).reshape(U, 2, S, P * (T1 + T2E))
         allpos = torch.where((seg_in & ~poison_probe)[..., None], allpos,
                              POS_PAD)
-        cnt_cand = (allpos < POS_PAD).sum(-1)              # (U, 2, S)
-        Wp = 1 << (W - 1).bit_length()
-        allpos = torch.cat([allpos, torch.full(
-            (U, 2, S, Wp - W), POS_PAD, dtype=I32, device=self.dev)], dim=-1)
-        # the reference sorts with a bitonic network (bitonic_sort_last):
-        # values without a payload, so every ascending sort of a row gives
-        # the same row
-        pos = torch.sort(allpos, dim=-1).values[..., :seg_cap]
-        return self.chain_dedup_select(pos, cnt_cand, cnt_cand > seg_cap,
-                                       heavy_over | enum_fb, offsets, n_segs,
-                                       min_match0, skip)
+        return allpos, (allpos < POS_PAD).sum(-1), cap_fb
+
+    def _head(self, allpos):
+        """The SEG_CAP smallest candidates a probe, ascending.  The
+        reference sorts with a bitonic network (bitonic_sort_last) after
+        padding to a power of two with POS_PAD: values without a payload,
+        so every ascending sort of a row gives the same row."""
+        pos = torch.sort(allpos, dim=-1).values[..., :SEG_CAP]
+        short = SEG_CAP - pos.shape[-1]
+        if short > 0:
+            pos = torch.cat([pos, torch.full(pos.shape[:-1] + (short,),
+                                             POS_PAD, dtype=I32,
+                                             device=self.dev)], dim=-1)
+        return pos
+
+    def seed_quarter(self, xcode_f, xcode_r, offsets, n_segs, min_match0,
+                     skip):
+        """Seed probing on the quartered-key index ("v2.5"), (U, ...)
+        unit-major: 4 projection lookups per probe enumerate the
+        Hamming<=1 candidate set of pemapper's fill_mers
+        (pemapper.c:1969-2003); index/quarter.py has the layout."""
+        starts_t, cnt_t = self.dnbr.args[:2]
+        keys2 = self.make_keys2(xcode_f, xcode_r, offsets)
+
+        # per-quarter projection lookup: (U, 2, S, 4)
+        sh_q = (3 - self._ar(4)) * 8
+        k4 = keys2[..., None]
+        qb_p = (k4 >> sh_q) & 0xFF
+        # two sub-width shifts, as the reference's uint32 program shifts
+        # (k >> 24) >> 8 where k >> 32 is undefined
+        sub = (((k4 >> sh_q) >> 8) << sh_q) | (k4 & ((1 << sh_q) - 1))
+        base = (self._ar(4) << SUB_BITS) | sub
+        allpos, cnt_cand, cap_fb = self._probe_runs(
+            starts_t[base].to(I64), cnt_t[base].to(I64), qb_p, n_segs, skip)
+        return run_alone(self.chain_dedup_select(
+            self._head(allpos), cnt_cand, cnt_cand > SEG_CAP, cap_fb,
+            offsets, n_segs, min_match0, skip))
+
+    def seed_octile(self, xcode_f, xcode_r, offsets, n_segs, min_match0,
+                    skip, gctx):
+        """Seed probing on a genome shard's octile index (a generator:
+        its genome-sharded tail meets the other shards).  8 projection
+        lookups of 28-bit subkeys through the content-proportional cuckoo
+        rank table enumerate the Hamming<=1 candidate set of pemapper's
+        fill_mers (pemapper.c:1969-2003); the dropped 2-base group's
+        nibble is the Hamming filter.  Positions are shard-local; with a
+        ``comm`` the probe counts only owned candidates and sums them
+        over the shards."""
+        tagt, valt = self.dnbr.args[:2]
+        tb = self.dnbr.tb
+        TT = 1 << tb
+        keys2 = self.make_keys2(xcode_f, xcode_r, offsets)
+
+        # 8 projections -> cuckoo rank lookup: (U, 2, S, 8)
+        sh_q = (7 - self._ar(8)) * 4
+        k8 = keys2[..., None]
+        qn_p = (k8 >> sh_q) & 0xF
+        sub = (((k8 >> sh_q) >> 4) << sh_q) | (k8 & ((1 << sh_q) - 1))
+        key31 = (self._ar(8) << OCT_SUB_BITS) | sub
+        m1 = _mix32(key31)
+        m2 = _mix2(key31)
+        h1 = m1 & (TT - 1)
+        h2 = TT + (m2 & (TT - 1))
+        e1 = _u32(tagt[h1])
+        e2 = _u32(tagt[h2])
+        tfm = (1 << 22) - 1
+        hit1 = ((e1 >> 31) != 0) & ((e1 & tfm) == (m1 >> tb))
+        hit2 = ((e2 >> 31) != 0) & ((e2 & tfm) == (m2 >> tb))
+        found = hit1 | hit2
+        # valt words as the reference's int32 cast of its uint32 values
+        start = torch.where(found, valt[torch.where(hit1, h1, h2)].to(I64),
+                            0)
+        cnt = torch.where(found, (torch.where(hit1, e1, e2) >> 22) & 0xFF, 0)
+        allpos, cnt_cand, cap_fb = self._probe_runs(start, cnt, qn_p, n_segs,
+                                                    skip)
+        shard = None
+        seg_tot = cnt_cand
+        if self.comm is not None:
+            # global per-probe candidate count: owned anchors only (the
+            # overlap copies would count twice), summed over the shards
+            own_lo, own_hi = gctx[2], gctx[3]
+            cnt_owned = ((allpos >= own_lo) & (allpos < own_hi)).sum(-1)
+            seg_tot = yield from self.comm.psum(cnt_owned)
+            shard = (own_lo, own_hi)
+        return (yield from self.chain_dedup_select(
+            self._head(allpos), seg_tot, cnt_cand > SEG_CAP, cap_fb, offsets,
+            n_segs, min_match0, skip, shard=shard))
 
     def chain_dedup_select(self, pos, seg_tot, seg_over, heavy_over,
-                           offsets, n_segs, min_match0, skip):
+                           offsets, n_segs, min_match0, skip, shard=None):
         """Co-linear chaining, min_match ratchet, per-unit diagonal dedup
-        and CAP selection (pemapper.c:2188-2289 semantics)."""
+        and CAP selection (pemapper.c:2188-2289 semantics); a generator
+        (``run_alone`` runs it unsharded).
+
+        ``shard`` (genome-sharded mode): the shard's (own_lo, own_hi) in
+        local index coordinates.  ``seg_tot`` is then the global
+        per-probe count; the chain votes stay local (a candidate's chain
+        mates lie in its owner's covered span), the ratchet maxes over
+        the shards so that every shard ratchets on the globally best
+        chain, and only owned candidates (window start in this shard's
+        interval) survive selection."""
         U, S, F, CAP = self.U, self.S, self.F, HIT_CAP
         seg_cap = SEG_CAP
         seg_valid = self._ar(S)[None, :] < n_segs[:, None]
@@ -827,6 +978,8 @@ class FusedStep2(DecideLayer):
                                 1 << 30).amin(-1)                 # (U, 2)
         wipe = min_spots > 200
         Tmax = T.amax(-1)
+        if shard is not None:
+            Tmax = yield from self.comm.pmax(Tmax)
         cur = min_match0.to(I32)
         processed = torch.zeros(pos.shape[:3], dtype=torch.bool,
                                 device=self.dev)
@@ -840,6 +993,10 @@ class FusedStep2(DecideLayer):
         accepted = (processed[..., None] & (T == cur[:, None, None, None])
                     & anchor_valid)
         accepted = accepted & ~wipe[:, 1][:, None, None, None]
+        if shard is not None:
+            # shard 0's own_lo is -2^30: the reference's genome-start
+            # clamp (diag < 0 -> spot 0) stays owned there
+            accepted = accepted & (diag >= shard[0]) & (diag < shard[1])
 
         # per-unit first-occurrence diagonal dedup, chunked over q
         acc = accepted.reshape(U, F)
@@ -865,6 +1022,8 @@ class FusedStep2(DecideLayer):
         hits_off = torch.where(sel, off_f[:, :, None], 0).sum(1).to(I32)
         orient = torch.where(sel, orient_f, 0).sum(1).to(torch.int8)
         tot = n_keep.clamp(max=CAP).to(I32)
+        if shard is not None:
+            n_keep = yield from self.comm.psum(n_keep)
         fallback = ((seg_over.any(dim=2).any(dim=1) | heavy_over
                      | (n_keep > CAP)) & (skip == 0))
         return hits, hits_off, orient, tot, fallback
@@ -873,13 +1032,24 @@ class FusedStep2(DecideLayer):
 
     def __call__(self, state: DeviceState, seqs_u, lens, offsets, n_segs,
                  mm0, thr, fb_pad):
+        return run_alone(self.run(state, seqs_u, lens, offsets, n_segs, mm0,
+                                  thr, fb_pad))
+
+    def run(self, state: DeviceState, seqs_u, lens, offsets, n_segs, mm0,
+            thr, fb_pad):
+        """The step as a generator: it yields at each collective of its
+        ``comm`` and returns the packed output block."""
         B, U, M, N = self.B, self.U, self.M, self.N
         CAP, H_CAP, R_ROWS = HIT_CAP, self.H_CAP, self.R_ROWS
         ins_cap, tie_cap = self.ins_cap, self.tie_cap
         pairize = self.pairize
+        comm = self.comm
         gcode, gmask, ist, st_pad = (state.gcode, state.gmask, state.ist,
                                      state.st_pad)
         dev_counts = state.dev_counts
+        gctx = state.gctx
+        octile = self.dnbr.mode == "octile"
+        c_shift = gctx[4] if octile else 0
         lens = lens.to(I32)
         # bit 30 of thr marks a boundary-ambiguous threshold
         thr_amb = (thr & (1 << 30)) != 0
@@ -888,10 +1058,14 @@ class FusedStep2(DecideLayer):
         x4f_w = pack4_dev(xf)
         x4r_w = pack4_dev(xr)
 
-        seed = (self.seed_quarter if self.dnbr.mode == "quarter"
-                else self.seed_nbr)
-        hits, hits_off, orient, tot, fb = seed(xf, xr, offsets, n_segs, mm0,
-                                               skip)
+        if octile:
+            hits, hits_off, orient, tot, fb = yield from self.seed_octile(
+                xf, xr, offsets, n_segs, mm0, skip, gctx)
+        else:
+            seed = (self.seed_quarter if self.dnbr.mode == "quarter"
+                    else self.seed_nbr)
+            hits, hits_off, orient, tot, fb = seed(xf, xr, offsets, n_segs,
+                                                   mm0, skip)
         fb = pairize(fb | fb_pad | exotic)
         tot = torch.where(fb, 0, tot)
         # units whose hits spill past H_CAP fall back (cap semantics)
@@ -916,7 +1090,7 @@ class FusedStep2(DecideLayer):
                               min=0).to(I64)
         lens_s = lens[rid_c]
         start_s, blen_s = windows(st_pad, ist, spots_s, lens_s,
-                                  self.n_contigs, self.chrom_steps)
+                                  self.n_contigs, self.chrom_steps, c_shift)
         blen_m = torch.where(slot_ok, blen_s, 0).to(I32)
         refs_x, exo = fetch_windows(gcode, gmask, start_s.to(I64), blen_m, N)
         ors_s = orient[rid_c, hid_s]
@@ -955,12 +1129,33 @@ class FusedStep2(DecideLayer):
         smax = torch.where(fb[:, None], PAD_SCORE, smax).to(I32)
 
         # --- decide ------------------------------------------------------
-        valid_d = self._ar(CAP, I32)[None, :] < tot[:, None]
+        valid_h = self._ar(CAP, I32)[None, :] < tot[:, None]
+        if comm is not None:
+            # a unit's candidates spread over the genome shards: globalize
+            # the fallback verdict, gather every shard's top list (global
+            # index coordinates, uint32 as the reference) shard-major, and
+            # decide identically on every shard
+            fb = (yield from comm.pmax(fb.to(I32))) > 0
+            tot = torch.where(fb, 0, tot)
+            smax = torch.where(fb[:, None], PAD_SCORE, smax).to(I32)
+            valid_h = self._ar(CAP, I32)[None, :] < tot[:, None]
+            pos_glob = torch.where(valid_h, (pos_tab + gctx[0]) & MASK32, 0)
+            smax_d = yield from comm.all_gather(
+                torch.where(valid_h, smax, PAD_SCORE), 1)
+            pos_d = yield from comm.all_gather(pos_glob, 1)
+            orient_d = yield from comm.all_gather(
+                torch.where(valid_h, orient, 0).to(torch.int8), 1)
+            valid_d = yield from comm.all_gather(valid_h, 1)
+            hash_d = yield from comm.all_gather(
+                torch.where(valid_h, htab, 0), 1)
+        else:
+            smax_d, pos_d, orient_d, valid_d, hash_d = (smax, pos_tab, orient,
+                                                        valid_h, htab)
         if self.paired:
-            e1 = dict(smax=smax[:B], pos=pos_tab[:B], valid=valid_d[:B],
-                      orient=orient[:B], hash=htab[:B])
-            e2 = dict(smax=smax[B:], pos=pos_tab[B:], valid=valid_d[B:],
-                      orient=orient[B:], hash=htab[B:])
+            e1 = dict(smax=smax_d[:B], pos=pos_d[:B], valid=valid_d[:B],
+                      orient=orient_d[:B], hash=hash_d[:B])
+            e2 = dict(smax=smax_d[B:], pos=pos_d[B:], valid=valid_d[B:],
+                      orient=orient_d[B:], hash=hash_d[B:])
             code_out, b1, b2, u1, u2, tie_p = self.decide_pair(
                 e1, e2, thr[:B], thr[B:])
             best_u = torch.cat([b1, b2])
@@ -968,20 +1163,33 @@ class FusedStep2(DecideLayer):
             tie_dec = torch.cat([tie_p, tie_p])
         else:
             code_out, best_u, use_u, tie_dec = self.decide_single(
-                smax, valid_d, thr, htab)
+                smax_d, valid_d, thr, hash_d)
 
-        slot_b = torch.gather(slot_tab, 1, best_u.to(I64)[:, None])[:, 0]
+        if comm is not None:
+            # only the winner's owner shard walks back and adds its pileup
+            own_u = torch.div(best_u, CAP, rounding_mode="floor") == comm.index
+            best_loc = torch.where(own_u, best_u % CAP, 0)
+            use_loc = torch.where(own_u, use_u, 0)
+        else:
+            best_loc, use_loc = best_u, use_u
+        slot_b = torch.gather(slot_tab, 1, best_loc.to(I64)[:, None])[:, 0]
         slot_b = slot_b.clamp(0, H_CAP - 1)
         # pre-walk tie routing: decide-level ambiguity, an exact argmax-
         # cell tie of the winner, or a threshold-boundary candidate
-        tie_al_u = (use_u == 1) & tie_a[slot_b]
-        thr_hit = ((valid_d & ((smax == thr[:, None]) |
-                               (smax == (thr - 1)[:, None]))).any(dim=1)
+        tie_al_u = (use_loc == 1) & tie_a[slot_b]
+        thr_hit = ((valid_d & ((smax_d == thr[:, None]) |
+                               (smax_d == (thr - 1)[:, None]))).any(dim=1)
                    & thr_amb)
         tie_pre = pairize(tie_dec | tie_al_u | thr_hit)
-        use_loc = torch.where(tie_pre, 0, use_u)
+        if comm is not None:
+            tie_pre = (yield from comm.pmax(tie_pre.to(I32))) > 0
+        use_loc = torch.where(tie_pre, 0, use_loc)
         m_u = torch.where(use_loc == 1, start_s[slot_b] + bi[slot_b] + 1, 0)
-        orb_u = torch.gather(orient, 1, best_u.to(I64)[:, None])[:, 0].to(
+        if comm is not None:
+            # .mfile positions are global seq coordinates (+15/contig)
+            m_u = yield from comm.psum(
+                torch.where(use_loc == 1, m_u + gctx[1], 0))
+        orb_u = torch.gather(orient_d, 1, best_u.to(I64)[:, None])[:, 0].to(
             I32)
 
         # --- winner compaction + traceback -------------------------------
@@ -1011,10 +1219,18 @@ class FusedStep2(DecideLayer):
         # tie_cap demote their unit to the full host remap
         tied = w_ok & tie_w
         trank = torch.cumsum(tied.to(I64), 0)
+        if comm is not None:
+            # ranks over the shards' merged record block, so that its
+            # overflow demotes units to the host remap (the reference
+            # raises there instead, pecaller_tpu/mapper/gshard.py:208-210)
+            n_tied = yield from comm.all_gather(trank[-1:], 0)
+            trank = trank + n_tied[:comm.index].sum()
         t_over = tied & (trank > tie_cap)
         fb_over = torch.zeros(U + 1, dtype=torch.bool, device=self.dev)
         fb_over[torch.where(t_over, uw, U)] = True        # row U: dump
         fb_over = pairize(fb_over[:U])
+        if comm is not None:
+            fb_over = (yield from comm.pmax(fb_over.to(I32))) > 0
         lane_keep = ~tied & ~fb_over[uw]
 
         # --- pileup add (flat counters, in place) -------------------------
@@ -1039,6 +1255,8 @@ class FusedStep2(DecideLayer):
         iu = torch.div(isrc, R_ROWS, rounding_mode="floor")
         ir = isrc % R_ROWS
         ipos = start_w[iu].to(I64) + ir
+        # records carry global seq coordinates; the pileup stays local
+        ipos_rec = ipos + gctx[1] if comm is not None else ipos
         iidx = torch.where(i_ok, ipos * 6 + 5, 0)
         inb = (iidx >= 0) & (iidx < n_cnt)
         dev_counts.index_add_(0, torch.where(inb, iidx, 0),
@@ -1053,7 +1271,7 @@ class FusedStep2(DecideLayer):
         zc = torch.zeros(ins_cap + 1, dtype=I32, device=self.dev)
         rec = torch.stack([
             col(i_ok, uw[iu], -1),
-            col(i_ok, ipos, -1),
+            col(i_ok, ipos_rec, -1),
             col(i_ok, ins_j.reshape(-1)[isrc], -1),
             col(i_ok, ins_len.reshape(-1)[isrc], 0),
             zc, zc], dim=1)
@@ -1066,9 +1284,10 @@ class FusedStep2(DecideLayer):
         tsrc = vsearch_ge(crt, self._ar(tie_cap) + 1, steps_u).clamp(
             0, U - 1)
         t_ok = self._ar(tie_cap) < n_trec
+        tstart = start_w[tsrc] + gctx[1] if comm is not None else start_w[tsrc]
         trec = torch.stack([
             col(t_ok, uw[tsrc], -1),
-            col(t_ok, start_w[tsrc], 0),
+            col(t_ok, tstart, 0),
             col(t_ok, blen_w[tsrc], 0),
             col(t_ok, orw[tsrc], 0),
             col(t_ok, k_w[tsrc], 0),
@@ -1092,8 +1311,8 @@ class FusedStep2(DecideLayer):
 # engine
 
 class FusedMapperEngine2(MapperEngine):
-    """Fused mapping engine v2 on one torch device, seeded by the nbr
-    index or by the quartered-key index ("v2.5").
+    """Fused mapping engine v2 on one torch device or a reads-axis mesh,
+    seeded by the nbr index or by the quartered-key index ("v2.5").
 
     With neither ``nbr`` nor ``quarter`` given it builds the nbr index
     (fastest probe), and the quartered-key index where the nbr index
@@ -1104,15 +1323,28 @@ class FusedMapperEngine2(MapperEngine):
     fallback pairs, the native f64 re-walk of tied windows and the
     output statistics.  ``device`` defaults to the first CUDA device; a
     CPU device, named by the caller, runs the plain versions of the
-    kernels."""
+    kernels.
+
+    ``mesh`` (``parallel.mesh.make_mesh``, more than one shard): the
+    reads axis shards over every mesh device; each batch's pairs split
+    into one part a shard (``shard_units``), each shard runs the step on
+    its part and adds into its own pileup partial (``states[s]``); the
+    partials are summed at ``final_pileup``.  Shards on one device share
+    that device's index tensors.  ``mesh_timing`` sums the host seconds
+    of staging and enqueuing the shards (dispatch) and of waiting for
+    their results (fetch) over the batches."""
 
     def __init__(self, *args, nbr: NbrIndex | None = None,
                  quarter: QuarterIndex | None = None,
                  force_quarter: bool = False, t1: int = 4, rcap: int = 12,
                  hv: int = 0, device="cuda", ins_cap: int = INS_CAP,
-                 tie_cap: int = TIE_CAP, **kwargs):
+                 tie_cap: int = TIE_CAP, mesh=None, **kwargs):
         super().__init__(*args, **kwargs)
-        self.device = resolve_device(device)
+        self._mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self._n_sh = mesh.size if self._mesh is not None else 1
+        self.device = (mesh.flat[0] if self._mesh is not None
+                       else resolve_device(device))
+        self.mesh_timing = {"dispatch_s": 0.0, "fetch_s": 0.0, "batches": 0}
         gs = self.sdx.genome_size
         if gs >= 2 ** 30:
             raise ValueError("fused device engine requires genome < 2^30 "
@@ -1132,10 +1364,20 @@ class FusedMapperEngine2(MapperEngine):
         self.ins_cap, self.tie_cap = ins_cap, tie_cap
         cw, mw = pack_genome(self.genome)
         qkw = dict(t1=t1, rcap=rcap, hv=hv) if quarter is not None else {}
-        self.state = carry_state(
-            nbr if quarter is None else quarter, cw, mw, self._istarts,
-            self.sdx.n_contigs, np.zeros((gs + SCATTER_PAD) * 6, np.uint32),
-            self.device, **qkw)
+        n_counts = (gs + SCATTER_PAD) * 6
+        if self._mesh is None:
+            self.states = [carry_state(
+                nbr if quarter is None else quarter, cw, mw, self._istarts,
+                self.sdx.n_contigs, np.zeros(n_counts, np.uint32),
+                self.device, **qkw)]
+        else:
+            from ..parallel.mesh import shard_states
+            base = {d: carry_state(
+                nbr if quarter is None else quarter, cw, mw, self._istarts,
+                self.sdx.n_contigs, np.zeros(0, np.uint32), d, **qkw)
+                for d in dict.fromkeys(self._mesh.flat)}
+            self.states = shard_states(self._mesh, base, n_counts)
+        self.state = self.states[0]
         self._steps = {}
         self.n_fallback = 0
         self.n_tiefix = 0       # walk-tie windows re-walked on host
@@ -1145,17 +1387,26 @@ class FusedMapperEngine2(MapperEngine):
         """Units the quarter probe sent to the host because a run was
         past rcap or the batch's spill budget ran out (0 on the nbr
         index)."""
-        return sum(int(s.n_cap_fb) for s in self._steps.values())
+        return sum(int(s.n_cap_fb) for st in self._steps.values()
+                   for s in getattr(st, "steps", [st]))
+
+    def _step_kw(self, B, M, N, s_max, mr):
+        return dict(paired=self.paired, bisulfite=self.bisulfite,
+                    min_dist=self.min_dist, max_dist=self.max_dist,
+                    n_contigs=self.sdx.n_contigs, B=B, M=M, N=N,
+                    s_max=s_max, ins_cap=self.ins_cap, tie_cap=self.tie_cap,
+                    max_rlen=mr)
 
     def _step_for(self, B, M, N, s_max, mr):
         key = (B, M, N, s_max, mr)
         if key not in self._steps:
-            self._steps[key] = FusedStep2(
-                self.state.dnbr, paired=self.paired,
-                bisulfite=self.bisulfite, min_dist=self.min_dist,
-                max_dist=self.max_dist, n_contigs=self.sdx.n_contigs,
-                B=B, M=M, N=N, s_max=s_max, ins_cap=self.ins_cap,
-                tie_cap=self.tie_cap, max_rlen=mr)
+            kw = self._step_kw(B, M, N, s_max, mr)
+            if self._mesh is None:
+                self._steps[key] = FusedStep2(self.state.dnbr, **kw)
+            else:
+                from ..parallel.mesh import sharded_fused_step2
+                self._steps[key] = sharded_fused_step2(
+                    self._mesh, self.states, **kw)[0]
         return self._steps[key]
 
     def _prep_end2(self, seqs, lens, B, M, s_max):
@@ -1202,23 +1453,72 @@ class FusedMapperEngine2(MapperEngine):
         if self.paired:
             a2 = self._prep_end2(seqs2, lens2, B, M, s_max)
             ins = [np.concatenate([x, y], axis=0) for x, y in zip(ins, a2)]
-        out = step(self.state, *(to_device(x, self.device) for x in ins))
-        return dict(seqs1=seqs1, lens1=lens1, seqs2=seqs2, lens2=lens2,
-                    read_nos=read_nos, n=seqs1.shape[0], B=B,
-                    **fetch_async(out, self.device))
+        h = dict(seqs1=seqs1, lens1=lens1, seqs2=seqs2, lens2=lens2,
+                 read_nos=read_nos, n=seqs1.shape[0], B=B)
+        if self._mesh is None:
+            out = step(self.state, *(to_device(x, self.device) for x in ins))
+            h.update(fetch_async(out, self.device))
+        else:
+            t0 = time.perf_counter()
+            outs = step(self._shard_inputs(ins, B))
+            self.mesh_timing["dispatch_s"] += time.perf_counter() - t0
+            self.mesh_timing["batches"] += 1
+            h["shards"] = [fetch_async(o, o.device) for o in outs]
+        return h
 
-    def resolve(self, h):
-        out = fetched(h)
-        n = h["n"]
-        B = h["B"]
-        packed = out[:B]
-        rec = out[B:B + self.ins_cap + 1, :4]
+    def _shard_inputs(self, ins, B):
+        from ..parallel.mesh import shard_units
+        return [shard_units(x, self._n_sh, B, self.paired) for x in ins]
+
+    def _fetch_shards(self, h) -> list:
+        """The shards' output blocks of a mesh batch, on the host."""
+        t0 = time.perf_counter()
+        outs = [fetched(f) for f in h.pop("shards")]
+        self.mesh_timing["fetch_s"] += time.perf_counter() - t0
+        return outs
+
+    def _records(self, out, n_unit):
+        """The insertion and walk-tie record rows of one output block of
+        ``n_unit`` packed rows (the reference's tail-marker layout)."""
+        rec = out[n_unit:n_unit + self.ins_cap + 1, :4]
         n_ins = int(rec[-1, 0])
         if n_ins > rec.shape[0] - 1:
             raise RuntimeError("insertion record cap exceeded; raise the "
                                "engine's ins_cap")
-        trec_a = out[B + self.ins_cap + 1:, :6]
-        trec = trec_a[:int(trec_a[-1, 0])]
+        trec = out[n_unit + self.ins_cap + 1:, :6]
+        return rec[:n_ins], trec[:int(trec[-1, 0])]
+
+    def _blocks(self, h):
+        """(packed rows (B, 6), insertion records, walk-tie records) of a
+        batch.  On the reads axis shard s holds pairs [s*bl, (s+1)*bl)
+        with unit rows [end1 bl | end2 bl]; its records' units are
+        renumbered to the single step's end-major units."""
+        B = h["B"]
+        if "shards" not in h:
+            out = fetched(h)
+            return (out[:B], *self._records(out, B))
+        outs = self._fetch_shards(h)
+        bl = B // len(outs)
+        packed, recs, trecs = [], [], []
+        for sh, out in enumerate(outs):
+            packed.append(out[:bl])
+            r, tr = (x.copy() for x in self._records(out, bl))
+            for arr in (r, tr):
+                if self.paired:
+                    end2 = arr[:, 0] >= bl
+                    arr[:, 0] = np.where(end2, B + sh * bl + (arr[:, 0] - bl),
+                                         sh * bl + arr[:, 0])
+                else:
+                    arr[:, 0] = sh * bl + arr[:, 0]
+            recs.append(r)
+            trecs.append(tr)
+        return (np.concatenate(packed), np.concatenate(recs),
+                np.concatenate(trecs))
+
+    def resolve(self, h):
+        n = h["n"]
+        B = h["B"]
+        packed, rr, trec = self._blocks(h)
         m1 = packed[:n, 0].astype(np.uint32)
         m2 = packed[:n, 1].astype(np.uint32)
         code = packed[:n, 2].astype(np.int32)
@@ -1232,7 +1532,6 @@ class FusedMapperEngine2(MapperEngine):
         # reverse-complement only the rows carrying reverse-strand
         # insertion records
         rev_rows = {0: {}, 1: {}}
-        rr = rec[:n_ins]
         if len(rr):
             # per-unit descending gpos: the reference walk attaches
             # insertion strings high-to-low (pemapper.c:1875-1905)
@@ -1265,8 +1564,10 @@ class FusedMapperEngine2(MapperEngine):
             src = rev_rows[end][rid] if orb[rid] == 1 else seqs[rid]
             sstr = src[js:js + ln].tobytes().decode()
             rn = int(read_nos[rid]) if read_nos is not None else int(rid)
+            # positions as uint32 (a genome shard's global records pass
+            # 2^31 on hg38)
             self.ins_records.append(
-                ((self._order_counter + rn, end), int(gpos), sstr))
+                ((self._order_counter + rn, end), int(gpos) & MASK32, sstr))
 
         if len(trec):
             self._rewalk_tied(trec, B, n, read_nos, seqs1, lens1, seqs2,
@@ -1365,10 +1666,13 @@ class FusedMapperEngine2(MapperEngine):
 
     def final_pileup(self) -> np.ndarray:
         host = self.pileup.sum(axis=0, dtype=np.uint16)
-        dc = self.state.dev_counts.cpu().numpy().view(np.uint32)
+        dc = np.zeros(self.state.dev_counts.shape[0], np.uint32)
+        for st in self.states:          # the shards' partials, mod 2^32
+            dc += st.dev_counts.cpu().numpy().view(np.uint32)
         dev = (dc.reshape(-1, 6) & 0xFFFF).astype(np.uint16)
         return (host + dev[:self.sdx.genome_size]).astype(np.uint16)
 
     def reset_group(self) -> None:
         super().reset_group()
-        self.state.dev_counts.zero_()
+        for st in self.states:
+            st.dev_counts.zero_()

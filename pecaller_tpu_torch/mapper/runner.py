@@ -17,6 +17,7 @@ import os
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from ..device import resolve_device
 from ..formats.fastq import FastqBatcher
@@ -67,9 +68,10 @@ class MapperConfig:
     # pileup + stats after each completed fastq (pair); restart skips them
     checkpoint: bool = False
     # device-mesh scale-out for the v2 fused engine: None = use every
-    # visible device (1 leaves the single-device step); reads shard over
-    # the mesh, each shard accumulating a pileup partial (the reference's
-    # per-directory SGE fan-out, map_directory_array.pl:101)
+    # visible device (torch.cuda.device_count() on CUDA, 1 on the CPU; 1
+    # leaves the single-device step); reads shard over the mesh, each
+    # shard accumulating a pileup partial (the reference's per-directory
+    # SGE fan-out, map_directory_array.pl:101)
     mesh_shards: int | None = None
     # torch device of the device path; None: the first CUDA device
     torch_device: str | None = None
@@ -111,16 +113,27 @@ def device_route(genome_size: int, nbr_index=None, quarter_index=None):
         return "v1", None
 
 
+def device_mesh(cfg: MapperConfig, devices: list):
+    """The reads-axis mesh of ``cfg.mesh_shards`` shards on ``devices``
+    (None: one shard a device), or None for one shard."""
+    n_sh = len(devices) if cfg.mesh_shards is None else cfg.mesh_shards
+    if n_sh <= 1:
+        return None
+    from ..parallel.mesh import make_mesh
+    return make_mesh(n_sh, 1, devices)
+
+
 def build_device_engine(cfg: MapperConfig, sdx, genome, index, base,
-                        device):
-    """The engine of ``device_route`` for this genome on ``device``."""
-    if cfg.mesh_shards not in (None, 1):
-        raise NotImplementedError(
-            "multi-device mapping (ROADMAP queue 1, item 8) is not yet "
-            "ported")
+                        devices):
+    """The engine of ``device_route`` for this genome on ``devices`` (a
+    device or a list): the v2 engine (nbr or quarter) over the reads-axis
+    mesh of ``device_mesh``; the v1 and split engines on the first
+    device, as the reference's runner gives them no mesh."""
+    devices = list(devices) if isinstance(devices, (list, tuple)) \
+        else [devices]
     kw = dict(bisulfite=cfg.bisulfite, min_align=cfg.min_align,
               min_dist=cfg.min_dist, max_dist=cfg.max_dist,
-              paired=cfg.paired, nthreads=cfg.nthreads, device=device)
+              paired=cfg.paired, nthreads=cfg.nthreads, device=devices[0])
     route, idx = device_route(
         sdx.genome_size, lambda: load_nbr_index(base, index),
         lambda: load_quarter_index(base, index))
@@ -129,21 +142,35 @@ def build_device_engine(cfg: MapperConfig, sdx, genome, index, base,
         return DeviceMapperEngine(sdx, genome, index, **kw)
     if route == "v1":
         return FusedMapperEngine(sdx, genome, index, **kw)
-    return FusedMapperEngine2(sdx, genome, index, **{route: idx}, **kw)
+    return FusedMapperEngine2(sdx, genome, index, **{route: idx},
+                              mesh=device_mesh(cfg, devices), **kw)
+
+
+def mapping_devices(cfg: MapperConfig, device=None) -> list:
+    """The torch devices of the device path: ``device`` (a device or a
+    list), else ``cfg.torch_device``, else every visible CUDA device
+    (at least one must exist: pass ``device="cpu"`` for the CPU)."""
+    if isinstance(device, (list, tuple)):
+        return [resolve_device(d) for d in device]
+    dev = resolve_device(cfg.torch_device if device is None else device)
+    if device is None and cfg.torch_device is None:
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]
 
 
 def run_mapper(cfg: MapperConfig, device=None) -> MapperEngine:
     """Map every fastq (pair) of ``cfg`` and write the artifacts.  With
-    ``cfg.device`` the fused engine runs on ``device`` (default
-    ``cfg.torch_device``, else the first CUDA device, which must exist:
-    pass ``device="cpu"`` to run the device path on the CPU)."""
+    ``cfg.device`` the fused engine runs on ``mapping_devices``: the v2
+    engine over a reads-axis mesh of ``cfg.mesh_shards`` shards (None:
+    one a device) where there is more than one."""
     sdx = read_sdx(cfg.sdx_path)
     base = _strip_sdx(cfg.sdx_path)
     genome = read_seq(base + ".seq", sdx.genome_size)
     index = load_index(base)
     if cfg.device:
-        dev = resolve_device(cfg.torch_device if device is None else device)
-        eng = build_device_engine(cfg, sdx, genome, index, base, dev)
+        eng = build_device_engine(cfg, sdx, genome, index, base,
+                                  mapping_devices(cfg, device))
     else:
         eng = MapperEngine(sdx, genome, index, bisulfite=cfg.bisulfite,
                            min_align=cfg.min_align, min_dist=cfg.min_dist,
@@ -212,6 +239,16 @@ def map_files(cfg: MapperConfig, eng: MapperEngine, sdx, genome):
         event(_log, "file_done", file=f1, records=n_rec)
         if cfg.checkpoint:
             _save_ckpt(ckpt_path, eng, it + 1, tot_pairs, order_base)
+    mt = getattr(eng, "mesh_timing", None)
+    if mt and mt["batches"]:
+        # the mesh path's host cost: staging and enqueuing the shards,
+        # and waiting for their results, per batch
+        event(_log, "mesh_overhead", n_shards=eng._n_sh,
+              batches=mt["batches"],
+              dispatch_ms_per_batch=round(
+                  1e3 * mt["dispatch_s"] / mt["batches"], 2),
+              fetch_ms_per_batch=round(
+                  1e3 * mt["fetch_s"] / mt["batches"], 2))
     with stage_timer(_log, "write_outputs"):
         write_outputs(cfg, eng, sdx, genome, tot_pairs, out_base=cur_base)
     if cfg.checkpoint and os.path.exists(ckpt_path):
@@ -240,8 +277,9 @@ def _load_ckpt(path, eng):
     sc = z["scalars"]
     eng.pileup[:] = 0
     eng.pileup[0] = z["counts"]
-    if hasattr(eng, "state"):
-        eng.state.dev_counts.zero_()
+    for st in getattr(eng, "states", None) or (
+            [eng.state] if hasattr(eng, "state") else []):
+        st.dev_counts.zero_()
     eng.stats.mate_counts = z["mate_counts"].copy()
     eng.stats.total_reads = int(sc[3])
     eng.stats.total_bases = int(sc[4])

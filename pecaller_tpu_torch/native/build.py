@@ -11,7 +11,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 # build/native/ at the root of the checkout (gitignored)
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
                          "native")
-_SOURCES = ["swexact.c", "chain.c", "mate.c"]
+_SOURCES = ["swexact.c", "chain.c", "mate.c", "cuckoo.c"]
 _LIB = None
 
 
@@ -74,6 +74,10 @@ def load_swexact() -> ctypes.CDLL:
         ctypes.c_int32, ctypes.c_int64,
         i32p, i32p, i32p, i32p, i32p]
     lib.decide_pair_batch.restype = None
+    lib.cuckoo_place.argtypes = [
+        u32p, u32p, u32p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, u32p,
+        u32p]
+    lib.cuckoo_place.restype = ctypes.c_int
     _LIB = lib
     return lib
 

@@ -1,0 +1,12 @@
+"""Mesh and multi-process scale-out (``mesh``, ``distributed``)."""
+
+from .distributed import (init_distributed, merge_caller_parts,
+                          partition_files, partition_genome,
+                          partition_intervals, run_caller_distributed,
+                          run_mapper_distributed)
+from .mesh import Mesh, make_mesh, shard_units, sharded_fused_step2
+
+__all__ = ["Mesh", "init_distributed", "make_mesh", "merge_caller_parts",
+           "partition_files", "partition_genome", "partition_intervals",
+           "run_caller_distributed", "run_mapper_distributed",
+           "shard_units", "sharded_fused_step2"]

@@ -1,0 +1,169 @@
+"""Mesh scale-out of the fused mapping step, single controller.
+
+Counterpart of ``pecaller_tpu/parallel/mesh.py``.  The reference's only
+scale-out is one process per directory via SGE qsub
+(map_directory_array.pl:101); the JAX package drives a device mesh from
+one process through ``shard_map``.  So does the port, with explicit
+devices:
+
+* ``make_mesh`` is a (reads, genome) grid of torch devices.  A device
+  may appear more than once: shards on one device share its index
+  tensors and differ only in their pileup partials.
+* reads axis (``sharded_fused_step2``): each shard runs the whole v2
+  step on its B / n pairs (``shard_units`` keeps both ends of a pair on
+  one shard) and adds into its own pileup partial; the partials are
+  summed once, at pileup download.  No collective inside the step.
+* genome axis (mapper/gshard.py): each shard's step is a generator that
+  yields at its collectives (``ShardComm``); ``lockstep`` advances the
+  shards together and reduces in shard order on the first shard's
+  device.  Deterministic, no threads, no process group.
+"""
+
+from __future__ import annotations
+
+from dataclasses import replace
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+
+
+class Mesh:
+    """A (reads, genome) grid of torch devices (``devices[r][g]``)."""
+
+    def __init__(self, devices, n_reads: int, n_genome: int):
+        self.devices = [list(devices[r * n_genome:(r + 1) * n_genome])
+                        for r in range(n_reads)]
+        self.shape = {"reads": n_reads, "genome": n_genome}
+
+    @property
+    def size(self) -> int:
+        return self.shape["reads"] * self.shape["genome"]
+
+    @property
+    def flat(self) -> list:
+        """Every shard's device, reads-major (the shard order)."""
+        return [d for row in self.devices for d in row]
+
+
+def make_mesh(n_reads_shards: int, n_genome_shards: int = 1,
+              devices=None) -> Mesh:
+    """The mesh of ``n_reads_shards x n_genome_shards`` shards on the
+    first devices of ``devices`` (default: every visible CUDA device;
+    a list may repeat a device).  Raises where there are too few."""
+    if devices is None:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    n = n_reads_shards * n_genome_shards
+    if n < 1 or len(devices) < n:
+        raise ValueError(f"a {n_reads_shards} x {n_genome_shards} mesh "
+                         f"needs {n} devices, got {len(devices)}")
+    return Mesh([resolve_device(d) for d in devices[:n]], n_reads_shards,
+                n_genome_shards)
+
+
+def shard_units(arr, n_shards: int, B: int, paired: bool):
+    """Split a (U, ...) end-major batch into (n_shards, U_local, ...)
+    keeping both ends of each pair on the same shard (decide_pair needs
+    them together).  For paired input U = 2B rows [end1 | end2]."""
+    if not paired:
+        return np.ascontiguousarray(
+            arr.reshape(n_shards, B // n_shards, *arr.shape[1:]))
+    bl = B // n_shards
+    a = arr.reshape(2, n_shards, bl, *arr.shape[1:])
+    return np.ascontiguousarray(
+        a.transpose(1, 0, *range(2, a.ndim)).reshape(
+            n_shards, 2 * bl, *arr.shape[1:]))
+
+
+def shard_states(mesh: Mesh, base_states: dict, n_counts: int) -> list:
+    """One DeviceState a shard: its device's index and genome tensors
+    (``base_states[device]``, shared by the shards on that device) and a
+    pileup partial of ``n_counts`` int32 counters of its own."""
+    return [replace(base_states[d], dev_counts=torch.zeros(
+        n_counts, dtype=torch.int32, device=d)) for d in mesh.flat]
+
+
+def sharded_fused_step2(mesh: Mesh, states: list, *, paired: bool,
+                        bisulfite: bool, min_dist: int, max_dist: int,
+                        n_contigs: int, B: int, M: int, N: int, s_max: int,
+                        max_rlen: int | None = None, **caps):
+    """The v2 fused step over every shard of ``mesh`` on the reads axis.
+
+    ``states`` holds each shard's DeviceState (``shard_states``).
+    Returns (step, n_shards): ``step(ins)`` takes the batch arrays of
+    the single step, each split by ``shard_units`` to (n_shards, ...),
+    runs one FusedStep2 of B / n_shards pairs a shard on its device,
+    adds into that shard's ``dev_counts`` and returns the shards' packed
+    output blocks (tensors on their devices).  ``caps``: ins_cap,
+    tie_cap."""
+    from ..mapper.device_map2 import FusedStep2, to_device
+    n_shards = mesh.size
+    if B % n_shards:
+        raise ValueError(f"B={B} must divide by n_shards={n_shards}")
+    steps = [FusedStep2(st.dnbr, paired=paired, bisulfite=bisulfite,
+                        min_dist=min_dist, max_dist=max_dist,
+                        n_contigs=n_contigs, B=B // n_shards, M=M, N=N,
+                        s_max=s_max, max_rlen=max_rlen, **caps)
+             for st in states]
+
+    def step(ins):
+        return [fn(st, *(to_device(x[s], st.dev_counts.device) for x in ins))
+                for s, (fn, st) in enumerate(zip(steps, states))]
+    step.steps = steps
+    return step, n_shards
+
+
+class ShardComm:
+    """The collectives of genome shard ``index`` of ``size``: each is a
+    generator that yields its request to ``lockstep`` and returns the
+    reduced tensor on the shard's device."""
+
+    def __init__(self, index: int, size: int):
+        self.index = index
+        self.size = size
+
+    def pmax(self, x):
+        return (yield ("pmax", x))
+
+    def psum(self, x):
+        return (yield ("psum", x))
+
+    def all_gather(self, x, dim: int):
+        """Concatenation along ``dim`` in shard order (tiled)."""
+        return (yield ("all_gather", x, dim))
+
+
+def lockstep(gens) -> list:
+    """Advance the genome shards' step generators together: at each
+    collective reduce their tensors in shard order on the first shard's
+    device and send each shard the result on its own device.  Returns
+    every shard's return value.  Raises where the shards disagree on
+    the collective they are at."""
+    sends = [None] * len(gens)
+    while True:
+        reqs, done = [], []
+        for g, v in zip(gens, sends):
+            try:
+                reqs.append(g.send(v))
+            except StopIteration as stop:
+                done.append(stop.value)
+        if done:
+            if reqs:
+                raise RuntimeError("genome shards left the step at "
+                                   "different collectives")
+            return done
+        kind = reqs[0][0]
+        if any(r[0] != kind or r[2:] != reqs[0][2:] for r in reqs):
+            raise RuntimeError(f"genome shards at different collectives: "
+                               f"{[r[0] for r in reqs]}")
+        dev0 = reqs[0][1].device
+        xs = [r[1].to(dev0) for r in reqs]
+        if kind == "pmax":
+            red = torch.stack(xs).amax(0)
+        elif kind == "psum":
+            red = torch.stack(xs).sum(0, dtype=xs[0].dtype)
+        else:
+            red = torch.cat(xs, dim=reqs[0][2])
+        sends = [red.to(r[1].device) for r in reqs]

@@ -1,6 +1,7 @@
 """The port's own copies of the reference package's JAX-free host code
 against the originals: the index builder writes the same files, the nbr
-index loader gives the same arrays, and the host oracle MapperEngine
+index loader gives the same arrays, the native cuckoo placement the
+numpy build's tables, and the host oracle MapperEngine
 maps the same (codes, .mfile positions, pileup, stats, insertion
 records) on tests/test_fused.py's data.
 
@@ -15,13 +16,14 @@ import pytest
 
 from pecaller_tpu.formats.fastq import FastqBatcher as JaxBatcher
 from pecaller_tpu.index import build_index as jax_build_index
+from pecaller_tpu.index.nbr import build_cuckoo as jax_build_cuckoo
 from pecaller_tpu.index.nbr import load_nbr_index as jax_load_nbr
 from pecaller_tpu.mapper.engine import MapperEngine as JaxEngine
 from pecaller_tpu_torch.formats.fastq import FastqBatcher
 from pecaller_tpu_torch.formats.index_files import load_index
 from pecaller_tpu_torch.formats.sdx import read_sdx, read_seq
 from pecaller_tpu_torch.index import build_index
-from pecaller_tpu_torch.index.nbr import load_nbr_index
+from pecaller_tpu_torch.index.nbr import build_cuckoo, load_nbr_index
 from pecaller_tpu_torch.mapper.engine import MapperEngine
 from torch_util import load_genome, make_fused_data
 from util import make_genome, write_fasta
@@ -68,6 +70,27 @@ def test_load_nbr_index_gives_the_same_arrays(data):
         a, b = getattr(ref, name), getattr(port, name)
         assert a is not None and np.array_equal(np.asarray(a),
                                                 np.asarray(b)), name
+
+
+@pytest.mark.parametrize("n,min_tb", [(0, None), (1, None), (5000, 10),
+                                      (300_000, None), (300_000, 13)])
+def test_cuckoo_tables_match_jax(n, min_tb):
+    """build_cuckoo (native placement, native/cuckoo.c) against the
+    reference's vectorized rounds: the same tag and value words and tb,
+    with abundant flags, counts past 255 and a forced small table
+    (displacement chains)."""
+    rng = np.random.default_rng(n + (min_tb or 0))
+    keys = np.unique(rng.integers(0, 2 ** 32, 2 * n + 1, dtype=np.uint64)
+                     .astype(np.uint32))[:n]
+    vs = np.zeros(len(keys) + 1, np.uint32)
+    vs[1:] = np.cumsum(rng.integers(0, 400, len(keys))).astype(np.uint32)
+    vs[:-1] |= (rng.random(len(keys)) < 0.1).astype(np.uint32) << 31
+    want = jax_build_cuckoo(keys, vs, min_tb=min_tb)
+    got = build_cuckoo(keys, vs, min_tb=min_tb)
+    assert got[2] == want[2]
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1],
+                                                              want[1])
+    assert ((got[0] >> 31) != 0).sum() == len(keys)
 
 
 def test_host_engine_maps_the_same(data):

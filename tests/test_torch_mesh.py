@@ -1,0 +1,240 @@
+"""The port's reads-axis mesh (parallel/mesh.py, the mesh path of
+FusedMapperEngine2 and run_mapper's mesh_shards) and the caller screen
+on a device mesh, against the JAX package's.
+
+Meshes of CPU devices stand in for cards (a device may repeat).  Data:
+torch_util's step cases (tests/test_fused2.py's genome, seed 43) and the
+caller cohorts of tests/test_screen.py.  Tolerance: bitwise (shard_units
+arrays, each shard's packed output and pileup partial, byte-equal
+artifacts, equal phase-0 codes); the JAX mesh screen's phase-1 codes to
+the screen's contract (chip_smoke.screen_contract), as the unsharded
+screen is held."""
+
+import copy
+import dataclasses
+import gzip
+import os
+import shutil
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from pecaller_tpu.caller import CallerConfig as JaxConfig
+from pecaller_tpu.caller import device_screen as jds
+from pecaller_tpu.caller import run_caller as jax_run_caller
+from pecaller_tpu.formats.pileup import write_pileup
+from pecaller_tpu.parallel import mesh as jmesh
+from pecaller_tpu_torch.caller import CallerConfig, run_caller
+from pecaller_tpu_torch.caller import device_screen as tds
+from pecaller_tpu_torch.mapper import device_map2 as tdm
+from pecaller_tpu_torch.mapper.runner import MapperConfig, run_mapper
+from pecaller_tpu_torch.parallel import mesh as tmesh
+from test_screen import _fuzz_counts, _mk_sdx
+from torch_util import cuda_device  # noqa: F401  (fixture)
+from torch_util import CASES, CPU, StepCase, make_fused2_data
+
+ARTIFACTS = (".snp", ".dist", ".base.gz", ".piles.gz")
+
+
+@pytest.fixture(scope="module")
+def data(tmp_path_factory):
+    return make_fused2_data(tmp_path_factory.mktemp("torch_mesh"))
+
+
+@pytest.mark.parametrize("paired", [True, False])
+def test_shard_units_matches_jax(paired):
+    rng = np.random.default_rng(5)
+    B, n = 64, 4
+    for shape in ((2 * B if paired else B, 7), (2 * B if paired else B,)):
+        x = rng.integers(0, 1000, shape).astype(np.int32)
+        got = tmesh.shard_units(x, n, B, paired)
+        assert np.array_equal(got, jmesh.shard_units(x, n, B, paired))
+        assert got.shape[:2] == (n, (2 if paired else 1) * B // n)
+
+
+@pytest.mark.parametrize("name", ["paired", "single"])
+def test_reads_axis_step_matches_jax(data, name):
+    """The port's reads-axis step over 4 CPU shards against JAX's
+    sharded_fused_step2 over 4 virtual devices: each shard's packed
+    output block and pileup partial (below every cap, as
+    tests/test_mesh.py's data)."""
+    c = StepCase(data, *CASES[name], seed=11)
+    B, n = c.shape["B"], 4
+    kw = dict(c.kw, B=B, M=c.shape["M"], N=c.shape["N"],
+              s_max=c.shape["s_max"], max_rlen=c.shape["max_rlen"])
+    paired = kw["paired"]
+    sh_ins = [tmesh.shard_units(np.asarray(x), n, B, paired) for x in c.ins]
+    rng = np.random.default_rng(3)
+    n_counts = c.counts.shape[0]
+    counts = rng.integers(0, 7, (n, n_counts)).astype(np.uint32)
+
+    jstep, jn = jmesh.sharded_fused_step2(jmesh.make_mesh(n, 1), c.jd,
+                                          genome_size=0, **kw)
+    dc_j, out_j = jstep(jnp.asarray(counts), *c.jd.args, *c.jfixed,
+                        *sh_ins)
+    mesh = tmesh.make_mesh(n, 1, [CPU] * n)
+    states = tmesh.shard_states(mesh, {CPU: c.state}, n_counts)
+    for s, st in enumerate(states):
+        st.dev_counts.copy_(torch.from_numpy(counts[s].view(np.int32)))
+        assert st.dnbr is c.state.dnbr              # one index a device
+    step, tn = tmesh.sharded_fused_step2(mesh, states, **kw)
+    outs = step(sh_ins)
+    out_j, dc_j = np.asarray(out_j), np.asarray(dc_j)
+    assert tn == jn == n
+    bl = B // n
+    for s in range(n):
+        assert np.array_equal(outs[s].numpy(), out_j[s])
+        assert np.array_equal(states[s].dev_counts.numpy().view(np.uint32),
+                              dc_j[s])
+        assert int(out_j[s, bl + tdm.INS_CAP, 0]) < tdm.INS_CAP
+    assert (out_j[:, :bl, 2] != 8).any()
+
+
+def _artifacts(base, d):
+    got = {}
+    for ext in (".pileup.gz", ".indel.txt.gz"):
+        with gzip.open(base + ext, "rb") as f:
+            got[ext] = f.read()
+    with open(base + ".summary.txt", "rb") as f:
+        got[".summary.txt"] = f.read()
+    for r in ("r1.fastq", "r2.fastq"):
+        got[r] = (d / (r + ".mfile")).read_bytes()
+    return got
+
+
+def test_run_mapper_mesh_matches_single(data, tmp_path):
+    """run_mapper with mesh_shards=4 (four CPU shards) writes the
+    single-device run's artifacts byte for byte."""
+    outs, engs = {}, {}
+    for shards in (1, 4):
+        d = tmp_path / f"sh{shards}"
+        d.mkdir()
+        for r in ("r1.fastq", "r2.fastq"):
+            shutil.copy(data / r, d / r)
+        cfg = MapperConfig(out_base=str(d / "out"),
+                           sdx_path=str(data / "g.sdx"), paired=True,
+                           files1=[str(d / "r1.fastq")],
+                           files2=[str(d / "r2.fastq")], max_dist=500,
+                           min_dist=0, batch_size=600, device=True,
+                           mesh_shards=shards, nthreads=2)
+        engs[shards] = run_mapper(cfg, device=[CPU] * 4)
+        outs[shards] = _artifacts(str(d / "out"), d)
+    assert engs[4]._n_sh == 4 and engs[1]._n_sh == 1
+    assert len(engs[4].states) == 4
+    assert engs[4].mesh_timing["batches"] == 2
+    assert outs[1][".summary.txt"].count(b"\n") > 5
+    assert outs[4] == outs[1]
+
+
+def test_screen_mesh_matches_single_and_jax():
+    """CallerScreen over a 2-device mesh: the same codes as the unsharded
+    screen (sites split into contiguous parts, one a device), and the
+    JAX mesh screen's to the contract."""
+    reads, ref_int, ctype = chip_smoke.screen_fuzz(
+        np.random.default_rng(8), 40000, 3)
+    mesh = tmesh.make_mesh(2, 1, [CPU, CPU])
+    port = tds.CallerScreen(3, False, chunk=16384, mesh=mesh)
+    one = tds.CallerScreen(3, False, chunk=16384, device="cpu")
+    assert port.devices == [CPU, CPU] and len(port._tabs) == 1
+    got = port(reads, ref_int, ctype)
+    assert np.array_equal(got, one(reads, ref_int, ctype))
+    assert port.sites == one.sites
+    want = jds.CallerScreen(3, False, chunk=16384,
+                            mesh=jmesh.make_mesh(2, 1))(reads, ref_int, ctype)
+    chip_smoke.screen_contract(got, want, reads, ref_int, ctype, False)
+
+
+def _read(path):
+    with open(path, "rb") as f:
+        raw = f.read()
+    return gzip.decompress(raw) if path.endswith(".gz") else raw
+
+
+def test_run_caller_mesh_matches_single_and_jax(tmp_path):
+    """run_caller with a 2-device mesh (both screen phases on the
+    devices) against the unsharded port and the JAX run_caller with its
+    2-device mesh: every artifact byte-equal."""
+    rng = np.random.default_rng(45)
+    d = str(tmp_path / "work")
+    os.makedirs(d)
+    g = _mk_sdx(d, rng)
+    pos, cnt = _fuzz_counts(rng, g, 3, 600)
+    for i in range(3):
+        write_pileup(os.path.join(d, f"s{i}.pileup.gz"), pos, cnt[i])
+    args = dict(pileup_ext="pileup", sdx_path=os.path.join(d, "g.sdx"),
+                prob_to_call=0.95, theta=0.001, directory=d, nthreads=2,
+                host_screen=False)
+    bases = {k: str(tmp_path / k) for k in ("mesh", "one", "jax")}
+    res = run_caller(CallerConfig(
+        out_base=bases["mesh"], mesh=tmesh.make_mesh(2, 1, [CPU, CPU]),
+        **args))
+    run_caller(CallerConfig(out_base=bases["one"], device="cpu", **args))
+    jax_run_caller(JaxConfig(out_base=bases["jax"],
+                             mesh=jmesh.make_mesh(2, 1), **args))
+    for ext in ARTIFACTS:
+        want = _read(bases["one"] + ext)
+        assert _read(bases["mesh"] + ext) == want, ext
+        assert _read(bases["jax"] + ext) == want, ext
+    assert res["screen_sites"]["phase0"] == 600
+    assert res["screen_sites"]["phase1"] > 0
+
+
+def _state_on(state, dev):
+    """A DeviceState's tensors copied to ``dev``."""
+    dn = copy.copy(state.dnbr)
+    dn.device = dev
+    dn.args = tuple(a.to(dev) for a in dn.args)
+    return dataclasses.replace(
+        state, dnbr=dn, gcode=state.gcode.to(dev), gmask=state.gmask.to(dev),
+        ist=state.ist.to(dev), st_pad=state.st_pad.to(dev),
+        dev_counts=state.dev_counts.to(dev))
+
+
+@pytest.mark.cuda
+def test_reads_axis_step_on_the_card(data, cuda_device):
+    """Two reads shards on cuda:0 (K1 and K2 on the card) against two on
+    the CPU: each shard's output block and pileup partial bitwise."""
+    c = StepCase(data, *CASES["paired"], seed=11)
+    B, n = c.shape["B"], 2
+    kw = dict(c.kw, B=B, M=c.shape["M"], N=c.shape["N"],
+              s_max=c.shape["s_max"], max_rlen=c.shape["max_rlen"])
+    sh_ins = [tmesh.shard_units(np.asarray(x), n, B, True) for x in c.ins]
+    got = {}
+    for dev in (CPU, cuda_device):
+        mesh = tmesh.make_mesh(n, 1, [dev] * n)
+        states = tmesh.shard_states(mesh, {dev: _state_on(c.state, dev)},
+                                    c.counts.shape[0])
+        step, _ = tmesh.sharded_fused_step2(mesh, states, **kw)
+        got[dev.type] = ([o.cpu().numpy() for o in step(sh_ins)],
+                         [st.dev_counts.cpu().numpy() for st in states])
+    for a, b in zip(*got.values()):
+        for x, y in zip(a, b):
+            assert np.array_equal(x, y)
+
+
+def test_lockstep_reduces_in_shard_order():
+    """lockstep's collectives: pmax and psum elementwise (psum in the
+    operand's dtype, as the reference's int32 psum), all_gather a
+    shard-major concatenation; shards at different collectives raise."""
+    def shard(g, n=3):
+        comm = tmesh.ShardComm(g, n)
+        x = yield from comm.pmax(torch.tensor([g, -g]))
+        y = yield from comm.psum(torch.tensor([g + 1], dtype=torch.int32))
+        z = yield from comm.all_gather(torch.tensor([[10 * g, 10 * g + 1]]),
+                                       1)
+        return x, y, z
+    for x, y, z in tmesh.lockstep([shard(g) for g in range(3)]):
+        assert x.tolist() == [2, 0]
+        assert y.dtype == torch.int32 and y.tolist() == [6]
+        assert z.tolist() == [[0, 1, 10, 11, 20, 21]]
+
+    def odd(g):
+        comm = tmesh.ShardComm(g, 2)
+        if g:
+            yield from comm.psum(torch.zeros(1))
+        yield from comm.pmax(torch.zeros(1))
+    with pytest.raises(RuntimeError, match="different collectives"):
+        tmesh.lockstep([odd(0), odd(1)])

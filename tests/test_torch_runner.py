@@ -1,8 +1,8 @@
 """The port's run_mapper(device=True) and its command line against the
 host path (byte-equal artifacts), its engine choice (v2 on the nbr
 index, v2 on the quartered-key index where the nbr index refuses, v1
-where both refuse) against the JAX runner's, the runner's one refusal
-(multi-device mapping), the quartered-key index builder's refusals
+where both refuse) against the JAX runner's, its mesh_shards (a
+reads-axis mesh of CPU shards), the quartered-key index builder's refusals
 against the JAX builder's, and the threshold-boundary inputs of
 tests/test_fused2.py.
 
@@ -102,7 +102,8 @@ def _refuse(*a, **k):
 def test_runner_refuses_what_is_not_ported(data, monkeypatch):
     """Where the nbr index refuses the genome the runner takes the
     quartered-key index (ROADMAP item 6, ported); multi-device mapping
-    (item 8) is the one route not ported."""
+    (item 8, ported) maps over a reads-axis mesh of mesh_shards shards,
+    and refuses a mesh larger than its devices."""
     from pecaller_tpu_torch.formats.index_files import load_index
     from pecaller_tpu_torch.formats.sdx import read_sdx, read_seq
     from pecaller_tpu_torch.mapper import runner
@@ -118,7 +119,10 @@ def test_runner_refuses_what_is_not_ported(data, monkeypatch):
     assert isinstance(eng, FusedMapperEngine2)
     assert eng.state.dnbr.mode == "quarter"
     cfg.mesh_shards = 4
-    with pytest.raises(NotImplementedError, match="item 8"):
+    eng = run_mapper(cfg, device=[CPU] * 4)
+    assert isinstance(eng, FusedMapperEngine2) and eng._n_sh == 4
+    assert eng.state.dnbr.mode == "quarter"
+    with pytest.raises(ValueError, match="needs 4 devices"):
         run_mapper(cfg, device=CPU)
 
 

@@ -168,8 +168,11 @@ def test_cuda_asked_without_a_card_raises(monkeypatch, tmp_path):
         tds.CallerScreen(3, False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tds.CallerScreen(3, False, device="cuda:0")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tds.CallerScreen(3, False, mesh=object(), device="cpu")
+    from pecaller_tpu_torch.parallel.mesh import make_mesh
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tds.CallerScreen(3, False, mesh=make_mesh(2, 1, ["cuda:0"] * 2))
+    screen = tds.CallerScreen(3, False, mesh=make_mesh(2, 1, ["cpu"] * 2))
+    assert screen.devices == [torch.device("cpu")] * 2
     with pytest.raises(NotImplementedError, match="item 11"):
         run_caller(CallerConfig(pileup_ext="pileup", sdx_path="g.sdx",
                                 out_base=str(tmp_path / "o"),

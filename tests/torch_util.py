@@ -241,3 +241,56 @@ def check_step(data, name, **case_kw):
     assert int(out_t[B + tdm.INS_CAP, 0]) > 0         # insertion records
     assert not np.array_equal(np.asarray(dc_j), c.counts)
     return c, out_t
+
+
+# ---- the genome-sharded octile engine
+
+def make_gshard_data(d):
+    """tests/test_gshard.py's data (seed 91): two contigs of 150 kb and
+    110 kb with a repeated block, 1200 pairs of 100 bp; g.* and
+    r1/r2.fastq in d."""
+    rng = np.random.default_rng(91)
+    names, seqs = make_genome(rng, [150_000, 110_000],
+                              n_blocks=[(0, 9000, 25)])
+    fa = str(d / "g.fa")
+    write_fasta(fa, names, seqs)
+    from pecaller_tpu.index import build_index
+    build_index(fa, str(d / "g"), write_idx=False)
+    reads = sample_reads(rng, names, seqs, 1200, read_len=100, err_rate=0.01,
+                         paired=True, insert_lo=150, insert_hi=450,
+                         indel_rate=0.1, max_indel=4)
+    write_fastq(str(d / "r1.fastq"), reads, which=0)
+    write_fastq(str(d / "r2.fastq"), reads, which=1)
+    return d
+
+
+def make_tie_genome_data(d):
+    """tests/test_gshard.py's cross-shard tie genome (seed 17): one 200 kb
+    contig with copies of a 400 bp block in each half of a 2-shard plan
+    and across its boundary, 600 pairs."""
+    rng = np.random.default_rng(17)
+    names, seqs = make_genome(rng, [200_000])
+    s = seqs[0]
+    block = s[20_000:20_400].copy()
+    s[150_000:150_400] = block
+    s[99_800:100_200] = block
+    fa = str(d / "g.fa")
+    write_fasta(fa, names, seqs)
+    from pecaller_tpu.index import build_index
+    build_index(fa, str(d / "g"), write_idx=False)
+    reads = sample_reads(rng, names, seqs, 600, read_len=100, err_rate=0.005,
+                         paired=True, insert_lo=150, insert_hi=450)
+    write_fastq(str(d / "r1.fastq"), reads, which=0)
+    write_fastq(str(d / "r2.fastq"), reads, which=1)
+    return d
+
+
+def jax_genome_mesh(n):
+    """The JAX tests' 1-D genome mesh over n virtual CPU devices."""
+    from jax.sharding import Mesh
+    return Mesh(np.asarray(jax.devices()[:n]), axis_names=("genome",))
+
+
+def port_genome_mesh(n, device=CPU):
+    from pecaller_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(1, n, [device] * n)
