@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--pairs N]
     python3 chip_smoke.py --kernels     # phases 1-3 only, about a minute
-    python3 chip_smoke.py --caller      # phases 1, 8 and 8b only
-    python3 chip_smoke.py --scaleout    # phases 1-3 and 9-11
+    python3 chip_smoke.py --caller      # phases 1, 8, 8b and 12 only
+    python3 chip_smoke.py --scaleout    # phases 1-3, 9-11 and 13
 
 Phases (each prints one line; any failure raises and exits non-zero):
 
@@ -105,14 +105,31 @@ Phases (each prints one line; any failure raises and exits non-zero):
      run_caller_distributed and merge_caller_parts on phase 8's cohort
      (.snp, .dist, .base.gz and .piles.gz byte-equal to the exact
      engine's single run); the wall time of each
+  12. the joint-configuration beam: phase 8's cohort through
+     run_caller(device_beam=True), the four artifacts byte-equal to the
+     exact engine's, with the beam's and the finisher's seconds and the
+     sites the beam took and flagged; tests/test_beam.py's 40,000-site
+     fuzz (beam_fuzz) at (3, diploid), (5, diploid) and (2, haploid) on
+     cuda:0, every unflagged site finished bitwise to the native engine
+     (beam_contract), the flag rates; the sweep at 3, 8, 16 and 32
+     samples on 8,192 fuzz sites the screen leaves HARD: beam, beam +
+     finisher, beam + finisher + native on the flagged sites and the
+     native engine alone (host cores as threads) in sites/s, the beam
+     path's outputs equal to the native run's, ms a 1024-site chunk
+     (CUDA events), peak memory
+  13. the sharded steps: sharded_map_step on two shards of cuda:0 at
+     8,192 lanes of the v1 shape (K3 on each shard), score, bk, bi and
+     the reduce-scattered pileup blocks bitwise against the one-device
+     plain path, bisulfite off and on; sharded_call_step equal to
+     site_likelihoods on one device
 
-Then a JSON line of the kernels (launches summed over phases 4-7, 9 and
-10), and last the result line {"ok": true, "device": {...}}.  With
+Then a JSON line of the kernels (launches summed over phases 4-7, 9, 10
+and 13), and last the result line {"ok": true, "device": {...}}.  With
 --kernels: phases 1-3, the kernels line with launches null, and no result
-line.  With --caller: phases 1, 8 and 8b, and neither line.  With
---scaleout: phases 1-3 and 9-11, making only the data and the oracles
-those need, then the kernels line (launches of phases 9 and 10) and no
-result line.  Needs no network and starts no process that outlives it.
+line.  With --caller: phases 1, 8, 8b and 12, and neither line.  With
+--scaleout: phases 1-3, 9-11 and 13, making only the data and the oracles
+those need, then the kernels line (launches of phases 9, 10 and 13) and
+no result line.  Needs no network and starts no process that outlives it.
 The script and the port import nothing of jax nor of the JAX package
 pecaller_tpu; the run fails if either entered sys.modules.
 """
@@ -2266,6 +2283,348 @@ def multi_process(n_pairs, host_dir, cb, call_want):
         note="wall includes each process's start, index load and writers")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the joint-configuration beam of the caller's HARD sites
+
+BEAM_FUZZ = ((3, False), (5, False), (2, True))
+BEAM_FUZZ_SITES = 40_000
+BEAM_SWEEP = (3, 8, 16, 32)
+BEAM_SWEEP_SITES = 8192
+
+
+def beam_fuzz(rng, n, indiv):
+    """tests/test_beam.py's adversarial count patterns (its _fuzz_sites,
+    the same draws from ``rng``): het mixes, low-level errors, indel
+    support near the 3-read gate, deep/shallow, multiallelic messes.
+    Returns (reads (n, indiv, 6) uint16, ref (n,) uint8)."""
+    import numpy as np
+    cnt = np.zeros((n, indiv, 6), np.uint16)
+    ref = rng.integers(0, 4, n).astype(np.uint8)
+    for k in range(n):
+        rc = int(ref[k])
+        kind = rng.integers(0, 10)
+        for i in range(indiv):
+            depth = int(rng.integers(3, 60))
+            c = np.zeros(6, np.int64)
+            c[rc] = depth
+            if kind == 0:                       # clean hom ref
+                pass
+            elif kind == 1:                     # clear het
+                alt = (rc + 1 + rng.integers(3)) % 4
+                c[alt] = depth // 2
+                c[rc] -= depth // 2
+            elif kind == 2:                     # hom alt
+                alt = (rc + 1 + rng.integers(3)) % 4
+                c[alt] = c[rc]
+                c[rc] = int(rng.integers(0, 3))
+            elif kind == 3:                     # marginal errors
+                alt = (rc + 1 + rng.integers(3)) % 4
+                c[alt] = int(rng.integers(1, 8))
+            elif kind == 4:                     # del around the gate
+                c[4] = int(rng.integers(0, 8))
+                c[rc] = max(depth - c[4], 0)
+            elif kind == 5:                     # ins around the gate
+                c[5] = int(rng.integers(0, 8))
+            elif kind == 6:                     # multiallelic mess
+                for a in range(4):
+                    c[a] = int(rng.integers(0, depth))
+            elif kind == 7:                     # mixed indel + snp
+                c[(rc + 1) % 4] = int(rng.integers(0, depth))
+                c[4] = int(rng.integers(0, 6))
+                c[5] = int(rng.integers(0, 6))
+            elif kind == 8:                     # shallow
+                c[:] = 0
+                c[rc] = int(rng.integers(0, 4))
+            else:                               # uneven cohort
+                c[rc] = int(rng.integers(0, 100))
+            cnt[k, i] = np.minimum(c, 65535)
+    return cnt, ref
+
+
+def native_calls(reads, ref, indiv, haploid, ctype=None, nthreads=2):
+    """The port's exact native engine on every site (theta 0.001,
+    threshold 0.95, no pedigree): pecall_sites's six outputs."""
+    import numpy as np
+    from pecaller_tpu_torch.caller.native import load_pecall, pecall_sites
+    lib, model = load_pecall(indiv, haploid, 0.001, 1e-8, 0.95, False,
+                             np.full(indiv, -1, np.int32),
+                             np.full(indiv, -1, np.int32),
+                             np.zeros(indiv, np.int32))
+    n = len(ref)
+    return pecall_sites(lib, model, reads, ref,
+                        np.zeros(n, np.uint8) if ctype is None else ctype,
+                        np.full(n, int(haploid), np.uint8), nthreads)
+
+
+def beam_contract(reads, ref, out, want, indiv, haploid, ctype=None):
+    """Hold a beam result ``out`` (DeviceBeam's seven arrays) to the
+    beam's contract: on every site it leaves unflagged, finish_f64's
+    calls, probs, types, acnt and active equal the native engine's
+    ``want`` (native_calls) bitwise.  Returns the flag rate."""
+    import numpy as np
+    from pecaller_tpu_torch.caller.device_beam import finish_f64
+    n_cfg, cfgs, flags, _, _, hrank, hval = out
+    ok = flags == 0
+    got = finish_f64(reads[ok], ref[ok], n_cfg[ok], cfgs[ok], hrank[ok],
+                     hval[ok], indiv=indiv, haploid=haploid, theta=0.001,
+                     threshold=0.95,
+                     ctype=None if ctype is None else ctype[ok])
+    calls, probs, types, _, acnt, active = want
+    for name, g, w in zip(("calls", "probs", "types", "acnt", "active"),
+                          got, (calls, probs, types, acnt, active)):
+        if not np.array_equal(g, w[ok]):
+            bad = (g != w[ok]).reshape(len(g), -1).any(1)
+            raise AssertionError(
+                f"beam at {indiv} samples: finished {name} differ from the "
+                f"native engine's on {int(bad.sum())} unflagged sites")
+    return float(1.0 - ok.mean())
+
+
+def beam_sets_agree(a, b):
+    """Two beam results on the same sites: where both leave a site
+    unflagged, equal n_cfg and config sets equal as sets of rows.
+    Returns the number of such sites; raises where they differ."""
+    import numpy as np
+    both = np.flatnonzero((a[2] == 0) & (b[2] == 0))
+    for k in both:
+        m = a[0][k]
+        if m != b[0][k] or set(map(bytes, a[1][k, :m])) != \
+                set(map(bytes, b[1][k, :m])):
+            raise AssertionError(f"site {k}: the beams' config sets differ")
+    return len(both)
+
+
+def _hard_sites(indiv, n, seed):
+    """``n`` beam_fuzz sites of ``indiv`` samples that the site screen
+    (on the card) leaves HARD: the sites a run sends to the beam."""
+    import numpy as np
+    from pecaller_tpu_torch.caller.device_screen import HARD, CallerScreen
+    rng = np.random.default_rng(seed)
+    reads, ref = beam_fuzz(rng, 2 * n, indiv)
+    codes = CallerScreen(indiv, False)(reads, ref,
+                                       np.zeros(len(ref), np.uint8))
+    hard = np.flatnonzero(codes == HARD)[:n]
+    if len(hard) < n:
+        raise AssertionError(f"{len(hard)} HARD fuzz sites at {indiv} "
+                             f"samples, {n} wanted")
+    return reads[hard], ref[hard]
+
+
+def _device_profile(fn):
+    """torch.profiler over one call of ``fn`` after a warm call: the
+    card's kernel ms, the number of kernels and copies on the card, and
+    the three ops with the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def self_dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+    def on_card(e):             # kernels and copies, not the host ops
+        return str(getattr(e, "device_type", "")).endswith("CUDA")
+    ka = prof.key_averages()
+    ops = [e for e in ka if not on_card(e)]
+    return dict(device_ms=sum(self_dev_us(e) for e in ka if on_card(e))
+                / 1e3,
+                device_events=sum(on_card(e) for e in prof.events()),
+                top_device=[(e.key, self_dev_us(e) / 1e3) for e in sorted(
+                    ops, key=self_dev_us, reverse=True)[:3]])
+
+
+def beam_path(cb, want):
+    """Phase 12: (a) phase 8's cohort through run_caller(device_beam=
+    True), the four artifacts byte-equal to the exact engine's; (b) the
+    40,000-site fuzz at (3, diploid), (5, diploid), (2, haploid) on
+    cuda:0 held to beam_contract; (c) the sweep at 3, 8, 16 and 32
+    samples on 8,192 HARD fuzz sites each: beam, beam + finisher, beam +
+    finisher + native on the flagged sites, and the native engine alone
+    (nthreads = host cores), each in sites/s; the beam's ms a chunk
+    (CUDA events) and its peak memory."""
+    import numpy as np
+    import torch
+    from pecaller_tpu_torch.caller import CallerConfig, run_caller
+    from pecaller_tpu_torch.caller.device_beam import DeviceBeam, finish_f64
+    dev = torch.device("cuda", 0)
+    threads = os.cpu_count() or 2
+    t_phase = time.time()
+    t0 = time.time()
+    cfg = CallerConfig(
+        pileup_ext="pileup", sdx_path=os.path.join(cb, "g.sdx"),
+        out_base=os.path.join(cb, "beam"), directory=cb, nthreads=threads,
+        device_beam=True)
+    run_caller(cfg)
+    t_warm = time.time() - t0
+    res = run_caller(cfg)
+    _call_gate("beam", cfg.out_base, want)
+    if not res["beam_sites"]:
+        raise AssertionError("the beam took no site of the cohort")
+    cohort = dict(sites=res["n_sites"], hard=res["codes"]["hard"],
+                  beam_sites=res["beam_sites"],
+                  beam_flagged=res["beam_flagged"],
+                  native_sites=res["native_sites"],
+                  beam_s=res["phases"].get("beam"),
+                  beam_finish_s=res["phases"].get("beam_finish"),
+                  native_s=res["phases"].get("native"),
+                  first_run_s=t_warm, byte_equal=sorted(want))
+
+    fuzz = []
+    for indiv, hap in BEAM_FUZZ:
+        rng = np.random.default_rng(999 + indiv)
+        reads, ref = beam_fuzz(rng, BEAM_FUZZ_SITES, indiv)
+        nat = native_calls(reads, ref, indiv, hap, nthreads=threads)
+        beam = DeviceBeam(indiv, hap, 0.001, 0.95)
+        t0 = time.time()
+        out = beam(reads, ref)
+        t_beam = time.time() - t0
+        rate = beam_contract(reads, ref, out, nat, indiv, hap)
+        if rate >= (0.45 if indiv < 4 else 0.80):
+            raise AssertionError(f"beam flag rate {rate} at {indiv}")
+        fuzz.append(dict(samples=indiv, haploid=hap, sites=len(ref),
+                         flag_rate=rate, beam_s=t_beam,
+                         unflagged_bitwise=True))
+
+    sweep = []
+    for indiv in BEAM_SWEEP:
+        reads, ref = _hard_sites(indiv, BEAM_SWEEP_SITES, 5 + indiv)
+        n = len(ref)
+        beam = DeviceBeam(indiv, False, 0.001, 0.95)
+        beam(reads[:beam.chunk], ref[:beam.chunk])
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        t0 = time.time()
+        out = beam(reads, ref)
+        t_beam = time.time() - t0
+        peak = torch.cuda.max_memory_allocated(dev) - held
+        ok = out[2] == 0
+        t0 = time.time()
+        fin = finish_f64(reads[ok], ref[ok], out[0][ok], out[1][ok],
+                         out[5][ok], out[6][ok], indiv=indiv,
+                         haploid=False, theta=0.001, threshold=0.95)
+        t_fin = time.time() - t0
+        t0 = time.time()
+        rest = native_calls(reads[~ok], ref[~ok], indiv, False,
+                            nthreads=threads)
+        t_rest = time.time() - t0
+        t0 = time.time()
+        nat = native_calls(reads, ref, indiv, False, nthreads=threads)
+        t_nat = time.time() - t0
+        # the beam path's outputs, site for site, against the native run
+        for k, (f, r, w) in enumerate(zip(fin, (rest[0], rest[1], rest[2],
+                                                rest[4], rest[5]),
+                                          (nat[0], nat[1], nat[2], nat[4],
+                                           nat[5]))):
+            path = np.empty_like(w)
+            path[ok], path[~ok] = f, r
+            if not np.array_equal(path, w):
+                raise AssertionError(f"sweep at {indiv} samples: output "
+                                     f"{k} of the beam path differs")
+        chunk = tuple(torch.from_numpy(x[:beam.chunk]).to(dev) for x in
+                      (reads.view(np.int16), ref))
+        ms = _timed(lambda: beam.chunk_fn(*chunk), 3)
+        prof = _device_profile(lambda: beam.chunk_fn(*chunk))
+        sweep.append(dict(
+            samples=indiv, sites=n, flag_rate=float(1 - ok.mean()),
+            beam_sites_per_s=n / t_beam,
+            beam_finish_sites_per_s=n / (t_beam + t_fin),
+            beam_path_sites_per_s=n / (t_beam + t_fin + t_rest),
+            native_sites_per_s=n / t_nat, native_threads=threads,
+            beam_s=t_beam, finish_s=t_fin, native_flagged_s=t_rest,
+            native_s=t_nat, chunk=beam.chunk, chunk_ms=ms,
+            chunk_device_ms=prof["device_ms"],
+            chunk_device_events=prof["device_events"],
+            chunk_idle_share=1.0 - prof["device_ms"] / ms,
+            chunk_top_device=prof["top_device"],
+            beam_max_memory_allocated=peak))
+    say("beam", cohort=cohort, fuzz=fuzz, sweep=sweep,
+        seconds=time.time() - t_phase,
+        note="sites/s on host arrays (upload, fetch and unpack "
+        "included); chunk_ms by CUDA events over 3 chunks of 1024 sites, "
+        "chunk_device_ms the kernels' own time in one chunk "
+        "(torch.profiler); beam path = beam + finisher + native on the "
+        "flagged sites")
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the sharded map and call steps
+
+MAP_STEP_LANES = 8192
+CALL_STEP_SITES = 1 << 16
+
+
+def sharded_steps():
+    """Phase 13: sharded_map_step on two shards of cuda:0 at 8,192 lanes
+    of the v1 shape (N 160, M 112, raw bytes), every output bitwise
+    against the one-device plain path (sw_align_device, the traceback
+    and pileup_scatter on cuda:0) over phase 4's genome size; then
+    sharded_call_step against site_likelihoods on one device.  Returns
+    K3's launches."""
+    import numpy as np
+    import torch
+    from pecaller_tpu_torch.caller.device_model import site_likelihoods
+    from pecaller_tpu_torch.ops import sw, sw_cuda
+    from pecaller_tpu_torch.parallel.mesh import (
+        make_mesh, sharded_call_step, sharded_map_step)
+    dev = torch.device("cuda", 0)
+    t_phase = time.time()
+    mesh = make_mesh(2, 1, [dev, dev])
+    gs = GENOME_LEN
+    out = {}
+    launches = 0
+    for bis in (False, True):
+        lanes = [torch.from_numpy(x).to(dev) for x in mk_lanes(
+            np.random.default_rng(1300 + bis), MAP_STEP_LANES, 160, 112,
+            90, 101, raw=True)]
+        step = sharded_map_step(mesh, gs, bisulfite=bis)
+        k0 = sw_cuda.LAUNCHES["sw_align"]
+        t0 = time.time()
+        score, bk, bi, blocks = step(*lanes)
+        torch.cuda.synchronize(dev)
+        t_step = time.time() - t0
+        launches += sw_cuda.LAUNCHES["sw_align"] - k0
+        ps, pk, pi = sw.sw_align_device(*lanes, bisulfite=bis)
+        ev_pos, ev_kind, ins_j, _ = sw.sw_traceback_device(
+            *lanes, pk, pi, bisulfite=bis)
+        gs_pad = -(-gs // mesh.size) * mesh.size
+        plain = sw.pileup_scatter(
+            ev_pos.reshape(-1).long(), ev_kind.reshape(-1),
+            (ins_j >= 0).reshape(-1),
+            torch.zeros((gs_pad, 6), dtype=torch.int16, device=dev))
+        for name, a, b in (("score", score, ps), ("bk", bk, pk),
+                           ("bi", bi, pi),
+                           ("pileup", torch.cat(blocks), plain)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"sharded_map_step {name} differs "
+                                     f"from the plain path (bisulfite "
+                                     f"{bis})")
+        if not plain.any():
+            raise AssertionError("sharded_map_step added no event")
+        out["bisulfite" if bis else "plain"] = dict(
+            step_s=t_step, events=int(plain.long().sum()))
+    rng = np.random.default_rng(13)
+    reads = torch.from_numpy(rng.integers(
+        0, 400, (CALL_STEP_SITES, 3, 6)).astype(np.int16)).to(dev)
+    ref_int = torch.from_numpy(rng.integers(
+        0, 4, CALL_STEP_SITES).astype(np.uint8)).to(dev)
+    got = sharded_call_step(mesh, 3)(reads, ref_int)
+    want = site_likelihoods(reads, ref_int)
+    if not torch.equal(got, want):
+        raise AssertionError("sharded_call_step differs from "
+                             "site_likelihoods on one device")
+    say("sharded_steps", shards=mesh.size, devices=[str(dev)] * mesh.size,
+        map_lanes=MAP_STEP_LANES, map_shape=[160, 112], genome_size=gs,
+        k3_launches=launches, bitwise=True, map=out,
+        call_sites=CALL_STEP_SITES, call_equal_one_device=True,
+        seconds=time.time() - t_phase)
+    return launches
+
+
 def _foreign_modules():
     return {m for m in sys.modules
             if any(m == p or m.startswith(p + ".")
@@ -2292,20 +2651,23 @@ def main():
                     help="phases 1-3 only (card, build, kernel check): "
                     "the kernels line with launches null, no result line")
     ap.add_argument("--caller", action="store_true",
-                    help="phases 1, 8 and 8b only (card, caller, screen "
-                    "contract): no kernels line, no result line")
+                    help="phases 1, 8, 8b and 12 only (card, caller, "
+                    "screen contract, beam): no kernels line, no result "
+                    "line")
     ap.add_argument("--scaleout", action="store_true",
-                    help="phases 1-3 and 9-11 (reads-axis mesh, genome "
-                    "shards, two processes) with the data and oracles "
-                    "they need: the kernels line, no result line")
+                    help="phases 1-3, 9-11 and 13 (reads-axis mesh, "
+                    "genome shards, two processes, sharded steps) with "
+                    "the data and oracles they need: the kernels line, "
+                    "no result line")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     before = _foreign_modules()
     import torch
     card_info()
     if args.caller:
-        caller_path(args.pairs)
+        cb, call_want = caller_path(args.pairs)
         screen_check()
+        beam_path(cb, call_want)
         return
     build(sass=args.kernels)
     if args.profile:
@@ -2325,6 +2687,7 @@ def main():
         for k, v in genome_mesh(MID_PAIRS, mid_host).items():
             launches[k] += v
         multi_process(args.pairs, host_dir, cb, call_want)
+        launches["sw_align"] += sharded_steps()
     else:
         launches, host = main_path(args.pairs)
         launches["sw_align"] += v1_path(args.pairs, host)["sw_align"]
@@ -2337,6 +2700,7 @@ def main():
         human_counts()
         cb, call_want = caller_path(args.pairs)
         screen_check()
+        beam_path(cb, call_want)
         host_dir = os.path.join(DATA, "host")
         for k, v in reads_mesh(args.pairs, host_dir, cb, call_want).items():
             launches[k] += v
@@ -2344,6 +2708,7 @@ def main():
                                 os.path.join(MID, "host")).items():
             launches[k] += v
         multi_process(args.pairs, host_dir, cb, call_want)
+        launches["sw_align"] += sharded_steps()
     entered = sorted(_foreign_modules() - before)
     if entered:
         raise AssertionError(f"the run imported {entered[:5]}")

@@ -1,12 +1,18 @@
-"""The reference's per-ref alpha prior (pecaller.c:3043-3139) in numpy:
-the input of the caller screen's tables (caller/device_screen.py).
+"""Genotype likelihoods vectorized over (sites, samples, genotypes) on a
+torch device, and the reference's per-ref alpha prior (pecaller.c:
+3043-3139) in numpy, the input of the screen's and the beam's tables.
 
-Counterpart of the numpy half of ``pecaller_tpu/caller/device_model.py``
-(its vectorized f32 likelihoods are not part of the port)."""
+Counterpart of ``pecaller_tpu/caller/device_model.py``.
+``site_likelihoods`` is the float32 lgamma Dirichlet-multinomial of
+fill_sample_like (pecaller.c:2448-2507) with the pass-1 flat alpha
+prior, equal to the exact native engine up to rounding; the byte-exact
+pipeline keeps the native engine.  Sites batch on a mesh's devices in
+``parallel.mesh.sharded_call_step``."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 NO_ALLELES = 6
 MAX_GEN = 14
@@ -56,3 +62,45 @@ def fill_alpha_prior_np(hom: int, het: int, ref: int) -> np.ndarray:
     a[13, 5] = (2 * het) // 5
     a[13, ref] = (8 * het) // 5
     return a
+
+
+_ALPHA_MEAN = np.stack([
+    fill_alpha_prior_np(300, 150, r) /
+    fill_alpha_prior_np(300, 150, r).sum(axis=1, keepdims=True)
+    for r in range(4)])      # (4, 14, 6)
+
+
+def site_likelihoods(reads, ref_int, norm: float = 1.0):
+    """(S, I, 6) counts (int16 bits of uint16, or a wider integer type)
+    + (S,) ref -> (S, I, 14) f32 log-likes on the inputs' device.
+
+    Mirrors fill_sample_like with the pass-1 flat alpha prior: the
+    Dirichlet-multinomial log pmf with per-sample concentration
+    scale = clip(min(tot,100)*norm, 10, 1000), alpha = ceil(scale*mean).
+    """
+    reads = (reads.to(torch.int32) & 0xFFFF).to(torch.float32)
+    tot = reads[..., :5].sum(-1)                      # (S, I)
+    scale = (tot.clamp(max=100.0) * norm).clamp(10.0, 1000.0)
+    mean = torch.from_numpy(_ALPHA_MEAN.astype(np.float32)).to(
+        reads.device)[ref_int.long()]                 # (S, 14, 6)
+    alpha = torch.ceil(scale[:, :, None, None]
+                       * mean[:, None, :, :]).clamp(min=1.0)
+    r = reads[:, :, None, :]                          # (S, I, 1, 6)
+    lg = torch.lgamma
+    a_tot = alpha.sum(-1)
+    t_tot = (alpha + r).sum(-1)
+    return (lg(alpha + r).sum(-1) - lg(alpha).sum(-1)
+            + lg(a_tot) - lg(t_tot)
+            + lg(tot[:, :, None] + 1.0) - lg(r + 1.0).sum(-1))
+
+
+def site_posteriors_flat(reads, ref_int, ln_theta: float):
+    """Per-sample genotype posteriors under an independent-sample
+    approximation: likelihood + theta prior per non-ref genotype,
+    softmax over genotypes.  For throughput measurement and screening;
+    the exact joint-configuration search refines flagged sites."""
+    like = site_likelihoods(reads, ref_int)
+    g = torch.arange(MAX_GEN, device=like.device)
+    is_ref_hom = g == ref_int.long()[:, None, None]
+    post = like + torch.where(is_ref_hom, 0.0, float(np.float32(ln_theta)))
+    return torch.softmax(post, dim=-1)

@@ -10,7 +10,7 @@ import ctypes
 
 import numpy as np
 
-from ..native.build import build_library
+from ..native.build import build_library, ptr
 
 _SRCS = ["pecall.c", "rowfmt.c", "screen.c"]
 _LIB = None
@@ -246,3 +246,28 @@ def load_pecall(indiv, haploid, theta, denovo_rate, threshold, use_ped,
         dad.ctypes.data_as(i32p), mom.ctypes.data_as(i32p),
         sex.ctypes.data_as(i32p))
     return lib, model
+
+
+def pecall_sites(lib, model, reads, ref_int, ctype, site_haploid,
+                 nthreads):
+    """The exact engine (pecall_sites_batch) on a batch of sites: reads
+    (n, I, 6) uint16, ref_int / ctype / site_haploid (n,) uint8.
+    Returns (calls int8 (n, I), probs f64 (n, I), types uint8 (n,),
+    denovo int32 (n,), acnt int32 (n, 6), active uint8 (n, I))."""
+    reads = np.ascontiguousarray(reads, dtype=np.uint16)
+    ri, ct, hp = (np.ascontiguousarray(x, dtype=np.uint8)
+                  for x in (ref_int, ctype, site_haploid))
+    nb, indiv = reads.shape[:2]
+    calls = np.zeros((nb, indiv), dtype=np.int8)
+    probs = np.zeros((nb, indiv), dtype=np.float64)
+    types = np.zeros(nb, dtype=np.uint8)
+    dn = np.zeros(nb, dtype=np.int32)
+    ac = np.zeros((nb, 6), dtype=np.int32)
+    act = np.zeros((nb, indiv), dtype=np.uint8)
+    lib.pecall_sites_batch(
+        model, ptr(reads, ctypes.c_uint16), ptr(ri, ctypes.c_uint8),
+        ptr(ct, ctypes.c_uint8), ptr(hp, ctypes.c_uint8), nb, nthreads,
+        ptr(calls, ctypes.c_int8), ptr(probs, ctypes.c_double),
+        ptr(types, ctypes.c_uint8), ptr(dn, ctypes.c_int32),
+        ptr(ac, ctypes.c_int32), ptr(act, ctypes.c_uint8))
+    return calls, probs, types, dn, ac, act

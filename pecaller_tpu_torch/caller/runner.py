@@ -8,9 +8,11 @@ see pecaller.c:226-1146 for the orchestration being mirrored.
 Counterpart of ``pecaller_tpu/caller/runner.py``.  The site screen
 (caller/device_screen.py) runs on the torch device ``CallerConfig.device``
 names, the first CUDA device unless the caller asks for the CPU (or on
-the devices of ``CallerConfig.mesh``); a
-screen that cannot be built or launched is an error, never a quiet drop
-to the exact path (``device_screen=False`` asks for that path).
+the devices of ``CallerConfig.mesh``), and so does the opt-in
+joint-configuration beam of the HARD sites (caller/device_beam.py, on
+the mesh's first device); a screen or beam that cannot be built or
+launched is an error, never a quiet drop to the exact path
+(``device_screen=False`` asks for that path).
 """
 
 from __future__ import annotations
@@ -24,9 +26,9 @@ import numpy as np
 
 from ..formats.pileup import read_pileup
 from ..formats.sdx import read_sdx, find_chrom_caller
-from ..native.build import ptr
 from .device_screen import BAD, EASY, HARD, UNRES, _phase0_tables
-from .native import load_pecall
+from .device_beam import DeviceBeam, finish_f64
+from .native import load_pecall, pecall_sites
 
 INT_TO_GEN = "ACGTDIMRWSYKEH" + "N"
 GEN_TO_INT = {c: i for i, c in enumerate(INT_TO_GEN[:14])}
@@ -76,9 +78,11 @@ class CallerConfig:
     # transcendental phase-1 screen stays on the device.  Set False to
     # screen phase 0 on the device too.
     host_screen: bool = True
-    # the JAX package's device joint-configuration beam for HARD sites
-    # (opt-in there; its output equals the native engine's).  Not
-    # ported (ROADMAP queue 1, item 11): True raises.
+    # joint-configuration beam on the device for the screen's HARD
+    # sites (caller/device_beam.py): f32 config sets finished in exact
+    # float64 on the host, flagged sites to the native engine; output
+    # equal to the native engine's.  Needs the screen; not with a
+    # pedigree or in dump mode
     device_beam: bool = False
     # gzip level for .base.gz/.piles.gz: the artifact contract is the
     # decompressed stream (all parity checks and downstream consumers
@@ -361,12 +365,10 @@ def run_caller(cfg: CallerConfig):
     <out>.base.gz, .snp, .piles.gz and .dist.  Returns a dict: n_sites,
     sample_names, phases (seconds a stage), screen_sites (the sites
     each screen phase took on the device, None without a screen), codes
-    (callable sites the screen resolved EASY or BAD, or left HARD) and
-    native_sites (the sites the exact engine called)."""
-    if cfg.device_beam:
-        raise NotImplementedError(
-            "the device configuration beam (ROADMAP queue 1, item 11) is "
-            "not ported: its output equals the native engine's")
+    (callable sites the screen resolved EASY or BAD, or left HARD),
+    native_sites (the sites the exact engine called), beam_sites (the
+    HARD sites the device beam took) and beam_flagged (those it sent
+    back to the exact engine)."""
     sdx = read_sdx(cfg.sdx_path)
     base = cfg.sdx_path[:cfg.sdx_path.rfind(".")] \
         if ".sdx" in cfg.sdx_path else cfg.sdx_path
@@ -399,6 +401,12 @@ def run_caller(cfg: CallerConfig):
         screen = CallerScreen(indiv, cfg.haploid, mesh=cfg.mesh,
                               device=cfg.device)
 
+    beam = None
+    if cfg.device_beam and not cfg.dump_mode and not cfg.use_ped \
+            and screen is not None:
+        beam = DeviceBeam(indiv, cfg.haploid, cfg.theta, cfg.prob_to_call,
+                          device=screen.devices[0])
+
     ck_path = cfg.out_base + ".cckpt.npz"
     resume_lo = 0
     ro = None
@@ -417,10 +425,10 @@ def run_caller(cfg: CallerConfig):
         st.max_cov = ck["max_cov"]
     w = _SiteWriters(cfg, sample_names, resume_offsets=ro)
     ph = _Phase()
-    tally = dict(easy=0, bad=0, hard=0, native=0)
+    tally = dict(easy=0, bad=0, hard=0, native=0, beam=0, beam_flagged=0)
     ctx = dict(cfg=cfg, sdx=sdx, genome=genome, frag_pos=frag_pos,
                chrom_types=chrom_types, indiv=indiv, lib=lib, model=model,
-               screen=screen, ph=ph, tally=tally)
+               screen=screen, beam=beam, ph=ph, tally=tally)
 
     if cfg.guide_path is None:
         from concurrent.futures import ThreadPoolExecutor
@@ -547,7 +555,8 @@ def run_caller(cfg: CallerConfig):
                 phases=dict(ph.t),
                 screen_sites=dict(screen.sites) if screen else None,
                 codes={k: tally[k] for k in ("easy", "bad", "hard")},
-                native_sites=tally["native"])
+                native_sites=tally["native"], beam_sites=tally["beam"],
+                beam_flagged=tally["beam_flagged"])
 
 
 class _Accum:
@@ -777,36 +786,51 @@ def _process_window(ctx, w, st, all_pos, data, present, site_haploid,
         tally["easy"] += int((cs == EASY).sum())
         tally["bad"] += int((cs == BAD).sum())
         tally["hard"] += int((cs == HARD).sum())
+
+    beam = ctx["beam"]
+    if beam is not None and len(cidx):
+        # the device beam proposes each HARD site's surviving config
+        # set; the f64 finisher reproduces the native bytes; flagged
+        # sites (f32 boundary, beam overflow, EM continuation) go to the
+        # native engine below.  Sites called haploid against the run's
+        # mode (guide-path chrY / MT) take the native engine.
+        bsel = cidx[site_haploid[cidx] == hap_want]
+        if len(bsel):
+            with ph("beam"):
+                n_cfg, cfgs, flags, _, _, hrank, hval = beam(
+                    np.ascontiguousarray(data[bsel]),
+                    ref_int[bsel].astype(np.uint8))
+            ok = flags == 0
+            tally["beam"] += len(bsel)
+            tally["beam_flagged"] += int((~ok).sum())
+            if ok.any():
+                sel = bsel[ok]
+                with ph("beam_finish"):
+                    # ctype: chrY sites are exempt from the <50%-of-
+                    # samples-at-8x bad gate (pecaller.c:1303-1304)
+                    fc, fp, ty, ac_, act_ = finish_f64(
+                        data[sel], ref_int[sel], n_cfg[ok], cfgs[ok],
+                        hrank[ok], hval[ok], indiv=indiv,
+                        haploid=cfg.haploid, theta=cfg.theta,
+                        threshold=cfg.prob_to_call,
+                        ctype=ctype[sel].astype(np.uint8))
+                out_calls[sel] = fc
+                out_probs[sel] = fp
+                out_types[sel] = ty
+                out_denovo[sel] = 0
+                out_acnt[sel] = ac_
+                out_active[sel] = act_
+                cidx = np.setdiff1d(cidx, sel, assume_unique=True)
+
     tally["native"] += len(cidx)
-    ctx_native = ph("native")
-    ctx_native.__enter__()
-    for lo in range(0, len(cidx), cfg.chunk_sites):
-        sel = cidx[lo:lo + cfg.chunk_sites]
-        nb = len(sel)
-        reads = np.ascontiguousarray(data[sel])
-        ri = np.ascontiguousarray(ref_int[sel].astype(np.uint8))
-        ch = np.ascontiguousarray(ctype[sel].astype(np.uint8))
-        hp = np.ascontiguousarray(site_haploid[sel])
-        calls = np.zeros((nb, indiv), dtype=np.int8)
-        probs = np.zeros((nb, indiv), dtype=np.float64)
-        types = np.zeros(nb, dtype=np.uint8)
-        dn = np.zeros(nb, dtype=np.int32)
-        ac = np.zeros((nb, 6), dtype=np.int32)
-        act = np.zeros((nb, indiv), dtype=np.uint8)
-        ctx["lib"].pecall_sites_batch(
-            ctx["model"], ptr(reads, ctypes.c_uint16),
-            ptr(ri, ctypes.c_uint8), ptr(ch, ctypes.c_uint8),
-            ptr(hp, ctypes.c_uint8), nb, cfg.nthreads,
-            ptr(calls, ctypes.c_int8), ptr(probs, ctypes.c_double),
-            ptr(types, ctypes.c_uint8), ptr(dn, ctypes.c_int32),
-            ptr(ac, ctypes.c_int32), ptr(act, ctypes.c_uint8))
-        out_calls[sel] = calls
-        out_probs[sel] = probs
-        out_types[sel] = types
-        out_denovo[sel] = dn
-        out_acnt[sel] = ac
-        out_active[sel] = act
-    ctx_native.__exit__(None, None, None)
+    with ph("native"):
+        for lo in range(0, len(cidx), cfg.chunk_sites):
+            sel = cidx[lo:lo + cfg.chunk_sites]
+            (out_calls[sel], out_probs[sel], out_types[sel],
+             out_denovo[sel], out_acnt[sel], out_active[sel]) = \
+                pecall_sites(ctx["lib"], ctx["model"], data[sel],
+                             ref_int[sel], ctype[sel], site_haploid[sel],
+                             cfg.nthreads)
 
     with ph("write"):
         w.write_calls_window(sdx, which, contig_pos, refc, callable_m,

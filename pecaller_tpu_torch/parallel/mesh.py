@@ -17,6 +17,11 @@ devices:
   yields at its collectives (``ShardComm``); ``lockstep`` advances the
   shards together and reduces in shard order on the first shard's
   device.  Deterministic, no threads, no process group.
+* ``sharded_map_step``: the SW batch (K3 on the card) and its
+  traceback on each shard's lanes, the partial pileups summed in shard
+  order and handed back as one row block a shard (the reduce-scatter).
+* ``sharded_call_step``: sites split into one contiguous block a shard,
+  ``site_likelihoods`` on each, no collective beyond the final gather.
 """
 
 from __future__ import annotations
@@ -61,6 +66,79 @@ def make_mesh(n_reads_shards: int, n_genome_shards: int = 1,
                          f"needs {n} devices, got {len(devices)}")
     return Mesh([resolve_device(d) for d in devices[:n]], n_reads_shards,
                 n_genome_shards)
+
+
+def sharded_map_step(mesh: Mesh, genome_size: int, bisulfite: bool = False):
+    """The mapping compute step over every shard of ``mesh``.
+
+    Step signature: (refs (B, N) uint8, blens (B,) int32, reads (B, M)
+    uint8, rlens (B,) int32), numpy or tensors -> (score x36, bk, bi:
+    (B,) int32 each in shard order on the first shard's device, blocks:
+    ``mesh.size`` (gs_pad / n, 6) int16 tensors, block s on shard s's
+    device).  Each shard scores its B / n lanes with
+    ``ops.sw_cuda.sw_align`` (K3 on the card, the plain version on the
+    CPU), walks them back with ``sw_traceback_device`` and adds the
+    events, at their window rows, into a (gs_pad, 6) partial pileup of
+    uint16 bits (``pileup_scatter``).  The partials are summed in shard
+    order on the first shard's device (wrapping mod 2^16) and split into
+    row blocks, the counterpart of ``psum_scatter``.  B not divisible by
+    the number of shards raises ValueError."""
+    from ..ops import sw as psw
+    from ..ops import sw_cuda
+    devs = mesh.flat
+    n = len(devs)
+    gs_pad = -(-genome_size // n) * n
+
+    def step(refs, blens, reads, rlens):
+        ins = [torch.as_tensor(x) for x in (refs, blens, reads, rlens)]
+        B = ins[0].shape[0]
+        if B % n:
+            raise ValueError(f"B={B} must divide by n_shards={n}")
+        bl = B // n
+        outs, parts = [], []
+        for s, dev in enumerate(devs):
+            r, bln, rd, rl = (x[s * bl:(s + 1) * bl].to(dev) for x in ins)
+            score, bk, bi = sw_cuda.sw_align(r, bln, rd, rl,
+                                             bisulfite=bisulfite)
+            ev_pos, ev_kind, ins_j, _ = psw.sw_traceback_device(
+                r, bln, rd, rl, bk, bi, bisulfite=bisulfite)
+            parts.append(psw.pileup_scatter(
+                ev_pos.reshape(-1).long(), ev_kind.reshape(-1),
+                (ins_j >= 0).reshape(-1),
+                torch.zeros((gs_pad, 6), dtype=torch.int16, device=dev)))
+            outs.append((score, bk, bi))
+        total = parts[0]
+        for p in parts[1:]:
+            total += p.to(total.device)
+        blocks = [b.to(d) for b, d in zip(total.view(n, gs_pad // n, 6),
+                                          devs)]
+        score, bk, bi = (torch.cat([o[k].to(devs[0]) for o in outs])
+                         for k in range(3))
+        return score, bk, bi, blocks
+    return step
+
+
+def sharded_call_step(mesh: Mesh, indiv: int):
+    """The per-site genotype-likelihood step over every shard of
+    ``mesh`` (sites are the data axis): step(reads (S, indiv, 6),
+    ref_int (S,)) splits the sites into one contiguous block a shard,
+    runs ``caller.device_model.site_likelihoods`` on each block's device
+    and returns the (S, indiv, 14) f32 likelihoods concatenated on the
+    first shard's device."""
+    from ..caller.device_model import site_likelihoods
+    devs = mesh.flat
+
+    def step(reads, ref_int):
+        reads, ref_int = torch.as_tensor(reads), torch.as_tensor(ref_int)
+        if reads.shape[1] != indiv:
+            raise ValueError(f"reads carry {reads.shape[1]} samples, the "
+                             f"step {indiv}")
+        S, P = reads.shape[0], len(devs)
+        cuts = [S * p // P for p in range(P + 1)]
+        return torch.cat([
+            site_likelihoods(reads[a:b].to(d), ref_int[a:b].to(d)).to(
+                devs[0]) for d, a, b in zip(devs, cuts, cuts[1:])])
+    return step
 
 
 def shard_units(arr, n_shards: int, B: int, paired: bool):

@@ -8,7 +8,12 @@ UNRES sites in a window (3 samples x 30,000 sites) that the host phase
 0 hands them to the device's phase 1.
 
 Tolerance: every artifact byte-equal (.snp, .dist; .base.gz and
-.piles.gz decompressed)."""
+.piles.gz decompressed).
+
+With device_beam=True (the HARD sites through the joint-configuration
+beam, caller/device_beam.py) the port's run_caller, host_screen True and
+False, is byte-equal to its own run without the beam and to the JAX
+run_caller with the beam, on the fuzzed cohorts above."""
 
 import gzip
 import os
@@ -142,3 +147,55 @@ def test_caller_phase1_on_device_matches_jax(tmp_path):
     assert res["screen_sites"]["phase0"] == 0
     codes = res["codes"]
     assert sum(codes.values()) == n and res["native_sites"] == codes["hard"]
+
+
+@pytest.mark.parametrize("indiv,haploid", [(3, False), (5, False),
+                                           (2, True)])
+def test_caller_beam_matches_exact_and_jax(tmp_path, indiv, haploid):
+    rng = np.random.default_rng(42 + indiv + (100 if haploid else 0))
+    d = str(tmp_path / "work")
+    os.makedirs(d)
+    g = _mk_sdx(d, rng)
+    pos, cnt = _fuzz_counts(rng, g, indiv, 600)
+    for i in range(indiv):
+        write_pileup(os.path.join(d, f"s{i}.pileup.gz"), pos, cnt[i])
+    args = dict(pileup_ext="pileup", sdx_path=os.path.join(d, "g.sdx"),
+                prob_to_call=0.95, theta=0.001, directory=d, nthreads=2,
+                haploid=haploid)
+    for host in (True, False):
+        bases = {k: str(tmp_path / f"{k}_{int(host)}")
+                 for k in ("beam", "exact", "jax")}
+        res = run_caller(CallerConfig(out_base=bases["beam"], device="cpu",
+                                      host_screen=host, device_beam=True,
+                                      **args))
+        run_caller(CallerConfig(out_base=bases["exact"], device="cpu",
+                                host_screen=host, **args))
+        jax_run_caller(JaxConfig(out_base=bases["jax"], host_screen=host,
+                                 device_beam=True, **args))
+        _same(bases["beam"], bases["exact"])
+        _same(bases["beam"], bases["jax"])
+        assert res["beam_sites"] > 0
+        assert res["beam_flagged"] < res["beam_sites"]
+        assert res["native_sites"] == \
+            res["codes"]["hard"] - res["beam_sites"] + res["beam_flagged"]
+        assert {"beam", "beam_finish"} <= set(res["phases"])
+
+
+def test_caller_beam_on_a_missing_card_raises(tmp_path):
+    """device_beam=True with device="cuda" and no card raises: no quiet
+    drop to the CPU or to the exact path."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    rng = np.random.default_rng(3)
+    d = str(tmp_path / "work")
+    os.makedirs(d)
+    g = _mk_sdx(d, rng)
+    pos, cnt = _fuzz_counts(rng, g, 3, 50)
+    for i in range(3):
+        write_pileup(os.path.join(d, f"s{i}.pileup.gz"), pos, cnt[i])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_caller(CallerConfig(
+            pileup_ext="pileup", sdx_path=os.path.join(d, "g.sdx"),
+            out_base=str(tmp_path / "out"), directory=d, device="cuda",
+            device_beam=True))

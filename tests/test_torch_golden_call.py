@@ -4,7 +4,8 @@ the argv tests/test_caller.py and tests/test_cohort.py gave the C tools:
 
 - call_3samp: `pecaller` (refcall; haploid, refhap; the guide bed
   regions.bed, refbed), also with both screen phases on the device
-  (host_screen False), and `dump_pileups` (refdump);
+  (host_screen False) and run_caller with and without the device beam,
+  and `dump_pileups` (refdump);
 - call_denovo: `pecaller` with the trio pedigree (refdn);
 - cohort_tail: `make_snplist`, `pecall_merger`, `merge_indel_snp`,
   `snp_to_vcf` and `snp_tran_counter`.
@@ -87,6 +88,17 @@ def test_pecaller_matches_the_c_golden(call_3samp, ref, args):
 def test_caller_both_phases_on_the_device_match_the_c_golden(call_3samp):
     run_caller(CallerConfig(pileup_ext="pileup", sdx_path="g.sdx",
                             out_base="ours", nthreads=2, host_screen=False,
+                            device="cpu"))
+    _same("ours", os.path.join(call_3samp, "refcall"))
+
+
+@pytest.mark.parametrize("beam", [False, True])
+def test_caller_beam_matches_the_c_golden(call_3samp, beam):
+    """tests/test_caller.py:108-117 in the port: run_caller with and
+    without the device beam (on the CPU) against refcall."""
+    run_caller(CallerConfig(pileup_ext="pileup", sdx_path="g.sdx",
+                            out_base="ours", prob_to_call=0.95, theta=0.001,
+                            haploid=False, nthreads=2, device_beam=beam,
                             device="cpu"))
     _same("ours", os.path.join(call_3samp, "refcall"))
 

@@ -8,7 +8,16 @@ caller cohorts of tests/test_screen.py.  Tolerance: bitwise (shard_units
 arrays, each shard's packed output and pileup partial, byte-equal
 artifacts, equal phase-0 codes); the JAX mesh screen's phase-1 codes to
 the screen's contract (chip_smoke.screen_contract), as the unsharded
-screen is held."""
+screen is held.
+
+sharded_map_step on a (4, 2) mesh of CPU devices against the JAX step
+on 8 virtual devices (__graft_entry__._example_batch, bisulfite off and
+on): score, bk, bi and the concatenated pileup blocks read as uint16,
+bitwise.  site_likelihoods, site_posteriors_flat and sharded_call_step
+against JAX's and against a float64 scipy.special.gammaln evaluation of
+the same formula (alpha as the formula rounds it in float32): the port's
+largest absolute error is at most twice JAX's own plus 1e-3 (plus 1e-4
+for the posteriors, which lie in [0, 1])."""
 
 import copy
 import dataclasses
@@ -21,13 +30,16 @@ import numpy as np
 import pytest
 import torch
 
+import __graft_entry__
 import chip_smoke
 from pecaller_tpu.caller import CallerConfig as JaxConfig
+from pecaller_tpu.caller import device_model as jdmod
 from pecaller_tpu.caller import device_screen as jds
 from pecaller_tpu.caller import run_caller as jax_run_caller
 from pecaller_tpu.formats.pileup import write_pileup
 from pecaller_tpu.parallel import mesh as jmesh
 from pecaller_tpu_torch.caller import CallerConfig, run_caller
+from pecaller_tpu_torch.caller import device_model as tdmod
 from pecaller_tpu_torch.caller import device_screen as tds
 from pecaller_tpu_torch.mapper import device_map2 as tdm
 from pecaller_tpu_torch.mapper.runner import MapperConfig, run_mapper
@@ -238,3 +250,128 @@ def test_lockstep_reduces_in_shard_order():
         yield from comm.pmax(torch.zeros(1))
     with pytest.raises(RuntimeError, match="different collectives"):
         tmesh.lockstep([odd(0), odd(1)])
+
+
+def _map_batch():
+    return __graft_entry__._example_batch(B=64, N=64, M=48, seed=3)
+
+
+@pytest.mark.parametrize("bisulfite", [False, True])
+def test_sharded_map_step_matches_jax(bisulfite):
+    gs = 2048
+    batch = _map_batch()
+    js = jmesh.sharded_map_step(jmesh.make_mesh(4, 2), gs,
+                                bisulfite=bisulfite)
+    want = [np.asarray(x) for x in js(*batch)]
+    mesh = tmesh.make_mesh(4, 2, [CPU] * 8)
+    score, bk, bi, blocks = tmesh.sharded_map_step(
+        mesh, gs, bisulfite=bisulfite)(*batch)
+    assert len(blocks) == 8 and blocks[0].shape == (gs // 8, 6)
+    got = [score.numpy(), bk.numpy(), bi.numpy(),
+           torch.cat(blocks).numpy().view(np.uint16)]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and np.array_equal(g, w)
+    assert want[3].sum() > 0
+    with pytest.raises(ValueError, match="divide"):
+        tmesh.sharded_map_step(mesh, gs)(*(x[:60] for x in batch))
+
+
+def _like_inputs(S=256, indiv=3, seed=21):
+    """Counts from shallow to past the screen's depth gate, random refs."""
+    rng = np.random.default_rng(seed)
+    depth = rng.choice([3, 30, 300, 3000, 12000], size=(S, indiv, 1))
+    frac = rng.dirichlet(np.ones(6) * 0.3, size=(S, indiv))
+    reads = np.floor(frac * depth).astype(np.uint16)
+    return reads, rng.integers(0, 4, S).astype(np.int32)
+
+
+def _like_f64(reads, ref_int, norm=1.0):
+    """The formula of site_likelihoods in float64 (scipy gammaln), alpha
+    rounded in float32 as the formula's ceil(scale * mean) is."""
+    from scipy.special import gammaln
+    r = reads.astype(np.float64)
+    tot = r[..., :5].sum(-1)
+    scale = np.clip(np.minimum(tot, 100.0).astype(np.float32)
+                    * np.float32(norm), 10.0, 1000.0).astype(np.float32)
+    mean = tdmod._ALPHA_MEAN.astype(np.float32)[ref_int]
+    alpha = np.maximum(np.ceil(scale[:, :, None, None]
+                               * mean[:, None, :, :]), 1.0).astype(
+        np.float64)
+    rr = r[:, :, None, :]
+    return (gammaln(alpha + rr).sum(-1) - gammaln(alpha).sum(-1)
+            + gammaln(alpha.sum(-1)) - gammaln((alpha + rr).sum(-1))
+            + gammaln(tot[:, :, None] + 1.0) - gammaln(rr + 1.0).sum(-1))
+
+
+def _port(x):
+    return torch.from_numpy(x.view(np.int16) if x.dtype == np.uint16
+                            else x)
+
+
+def test_site_likelihoods_match_jax_and_f64():
+    reads, ref_int = _like_inputs()
+    f64 = _like_f64(reads, ref_int)
+    got = tdmod.site_likelihoods(_port(reads), _port(ref_int))
+    assert got.dtype == torch.float32 and got.shape == (256, 3, 14)
+    want = np.asarray(jdmod.site_likelihoods(reads, ref_int))
+    e_port = float(np.abs(got.numpy() - f64).max())
+    e_jax = float(np.abs(want - f64).max())
+    print(f"site_likelihoods max abs err vs f64: port {e_port}, jax {e_jax}")
+    assert e_port <= 2 * e_jax + 1e-3
+
+    ln_theta = float(np.log(0.001))
+    post_f64 = f64 + np.where(
+        np.arange(14)[None, None, :] == ref_int[:, None, None], 0.0,
+        ln_theta)
+    post_f64 = np.exp(post_f64 - post_f64.max(-1, keepdims=True))
+    post_f64 /= post_f64.sum(-1, keepdims=True)
+    got = tdmod.site_posteriors_flat(_port(reads), _port(ref_int),
+                                     ln_theta).numpy()
+    want = np.asarray(jdmod.site_posteriors_flat(reads, ref_int, ln_theta))
+    e_port = float(np.abs(got - post_f64).max())
+    e_jax = float(np.abs(want - post_f64).max())
+    print(f"site_posteriors_flat max abs err vs f64: port {e_port}, "
+          f"jax {e_jax}")
+    assert e_port <= 2 * e_jax + 1e-4
+
+
+def test_sharded_call_step_matches_jax_and_f64():
+    reads, ref_int = _like_inputs(seed=22)
+    f64 = _like_f64(reads, ref_int)
+    mesh = tmesh.make_mesh(4, 2, [CPU] * 8)
+    got = tmesh.sharded_call_step(mesh, 3)(_port(reads), _port(ref_int))
+    assert torch.equal(got, tdmod.site_likelihoods(_port(reads),
+                                                   _port(ref_int)))
+    want = np.asarray(jmesh.sharded_call_step(jmesh.make_mesh(4, 2), 3)(
+        reads, ref_int))
+    e_port = float(np.abs(got.numpy() - f64).max())
+    e_jax = float(np.abs(want - f64).max())
+    print(f"sharded_call_step max abs err vs f64: port {e_port}, "
+          f"jax {e_jax}")
+    assert e_port <= 2 * e_jax + 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bisulfite", [False, True])
+def test_sharded_map_step_on_the_card(cuda_device, bisulfite):
+    """Two shards on cuda:0 (K3 on each) against the one-device plain
+    path on the CPU, bitwise."""
+    from pecaller_tpu_torch.ops import sw, sw_cuda
+    gs = 4096
+    batch = [torch.from_numpy(x) for x in chip_smoke.mk_lanes(
+        np.random.default_rng(40 + bisulfite), 2048, 160, 112, 90, 101,
+        raw=True)]
+    k0 = sw_cuda.LAUNCHES["sw_align"]
+    score, bk, bi, blocks = tmesh.sharded_map_step(
+        tmesh.make_mesh(2, 1, [cuda_device] * 2), gs,
+        bisulfite=bisulfite)(*(x.to(cuda_device) for x in batch))
+    assert sw_cuda.LAUNCHES["sw_align"] - k0 == 2
+    ps, pk, pi = sw.sw_align_device(*batch, bisulfite=bisulfite)
+    ev_pos, ev_kind, ins_j, _ = sw.sw_traceback_device(
+        *batch, pk, pi, bisulfite=bisulfite)
+    plain = sw.pileup_scatter(ev_pos.reshape(-1).long(), ev_kind.reshape(-1),
+                              (ins_j >= 0).reshape(-1),
+                              torch.zeros((gs, 6), dtype=torch.int16))
+    for a, b in ((score, ps), (bk, pk), (bi, pi),
+                 (torch.cat(blocks), plain)):
+        assert torch.equal(a.cpu(), b)

@@ -20,7 +20,6 @@ import torch_util  # noqa: F401  (one torch thread a worker)
 from pecaller_tpu.caller import device_screen as jds
 from pecaller_tpu.caller.native import host_screen_stats as jax_stats
 from pecaller_tpu_torch.caller import device_screen as tds
-from pecaller_tpu_torch.caller import CallerConfig, run_caller
 from pecaller_tpu_torch.caller.native import host_screen_stats
 
 # (samples, haploid) of the fuzzed chunks
@@ -162,7 +161,7 @@ def test_caller_screen_chunks_match_jax():
     assert tds.CallerScreen(64, False, device="cpu").chunk == 1 << 15
 
 
-def test_cuda_asked_without_a_card_raises(monkeypatch, tmp_path):
+def test_cuda_asked_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tds.CallerScreen(3, False)
@@ -173,10 +172,10 @@ def test_cuda_asked_without_a_card_raises(monkeypatch, tmp_path):
         tds.CallerScreen(3, False, mesh=make_mesh(2, 1, ["cuda:0"] * 2))
     screen = tds.CallerScreen(3, False, mesh=make_mesh(2, 1, ["cpu"] * 2))
     assert screen.devices == [torch.device("cpu")] * 2
-    with pytest.raises(NotImplementedError, match="item 11"):
-        run_caller(CallerConfig(pileup_ext="pileup", sdx_path="g.sdx",
-                                out_base=str(tmp_path / "o"),
-                                device_beam=True))
+    # the device beam (run_caller's device_beam=True) is no exception
+    from pecaller_tpu_torch.caller.device_beam import DeviceBeam
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceBeam(3, False, 0.001, 0.95)
 
 
 @pytest.mark.cuda
