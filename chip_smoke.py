@@ -25,29 +25,38 @@ Phases (each prints one line; any failure raises and exits non-zero):
      and 256), B 1 and 1001
   4. main path (v2): an E. coli-scale genome (4.6 Mb, seed 2024) and 100k
      100 bp pairs, made once under .smoke/; `pemapper --device` in
-     8192-pair batches through the port's command line, against the
-     host oracle (same command line without --device): .summary.txt,
+     8192-pair batches through the port's command line, each shape
+     key's step a CUDA graph (mapper/program.py), against the host
+     oracle (same command line without --device): .summary.txt,
      .pileup.gz, .indel.txt.gz and both .mfile dumps byte-equal; K1 and
-     K2 launched on that run; reads/s over the batches (median of 3
-     passes after a warm pass), fallbacks, re-walked ties, peak device
-     memory
-  5. v1 path: the fused v1 engine (exact-key seed tables, K3) on the same
-     genome and reads through the runner's map_files: .summary.txt and
-     both .mfile dumps byte-equal to the host oracle's, the pileup equal
-     up to tie-local placement (tie_local_pileup), the same (read,
-     length) multiset of insertion records, K3 launched twice per
-     batch; reads/s over the first 4 batches, the eager traceback's
-     time, fallbacks, peak device memory
+     K2 counted once a batch on that run, replays included; again with
+     PECALLER_GROUP_K=3 (three batches a graph), the same five
+     artifacts byte-equal; then graph_vs_eager against the engine with
+     graph=False: raw outputs of three batches bitwise, and for each
+     engine reads/s over the batches (median of 3 passes after a warm
+     pass), host enqueue and resolve ms a batch, peak memory above the
+     resident engines and memory reserved; capture and instantiate
+     seconds, graph pool bytes, one batch's replay in device ms;
+     group_k=3's reads/s; fallbacks, re-walked ties
+  5. v1 path: the fused v1 engine (exact-key seed tables, K3, the eager
+     traceback), its step and output concatenation one graph a key, on
+     the same genome and reads through the runner's map_files:
+     .summary.txt and both .mfile dumps byte-equal to the host oracle's,
+     the pileup equal up to tie-local placement (tie_local_pileup), the
+     same (read, length) multiset of insertion records, K3 counted twice
+     a batch; graph_vs_eager over the first 4 batches (the graph's
+     capture and instantiate seconds for its ~40,000 nodes among them),
+     fallbacks, peak device memory
   6. v2.5 path: bench.py's mid-size data (one 47 Mb contig "chr21x",
      seed 2025, 50k 100 bp pairs), made once under .smoke/mid/; the
      exact-key index build, the quartered-key index build (cached as
      .q4x parts) and its upload, each timed; `pemapper --device` in
      8192-pair batches through the port's command line, where the
      runner must pick the quartered-key index (the nbr index refuses
-     the genome up front), against the host oracle: all five artifacts
-     byte-equal, K1 and K2 launched; reads/s (median of 3 passes after a
-     warm pass), fallbacks, re-walked ties, units the probe's caps sent
-     to the host, peak device memory
+     the genome up front), graphed, against the host oracle: all five
+     artifacts byte-equal, K1 and K2 counted once a batch;
+     graph_vs_eager; fallbacks, re-walked ties, units the probe's caps
+     sent to the host, peak device memory
   7. split path: the split engine (DeviceMapperEngine: SW scores by K3,
      eager traceback and 2-byte pileup counters on the card) on phase
      6's data, as the runner builds it at 2^30 bases and more (host
@@ -84,13 +93,14 @@ Phases (each prints one line; any failure raises and exits non-zero):
      per chunk (CUDA events) and the screen's sites/s
 
   9. reads-axis mesh: phase 4's data through `pemapper --device` with
-     mesh_shards 2 on [cuda:0, cuda:0] (run_mapper with a device list):
-     all five artifacts byte-equal to the host oracle, K1 and K2
-     launched; reads/s of the 2-shard engine and of a one-device engine
-     on the same batches (median of 3 after a warm pass each, with the
-     spread), mesh_timing's dispatch and fetch ms a batch, peak device
-     memory; phase 8's cohort with CallerConfig(mesh=2 shards on cuda:0,
-     host_screen=False) byte-equal to the exact engine, sites/s
+     mesh_shards 2 on [cuda:0, cuda:0] (run_mapper with a device list),
+     each shard's step a graph: all five artifacts byte-equal to the
+     host oracle, K1 and K2 counted once a batch a shard;
+     graph_vs_eager against the eager 2-shard engine, with
+     mesh_timing's dispatch and fetch ms a batch (phase 4 has one
+     device's reads/s); phase 8's cohort with CallerConfig(mesh=2
+     shards on cuda:0, host_screen=False) byte-equal to the exact
+     engine, sites/s
   10. genome-sharded octile: phase 6's data; plan_shards(sdx, 2) and
      build_octile_shards timed, each shard's table bytes; the
      OctileShardedEngine with both shards on cuda:0, built directly as
@@ -123,8 +133,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      plain path, bisulfite off and on; sharded_call_step equal to
      site_likelihoods on one device
 
-Then a JSON line of the kernels (launches summed over phases 4-7, 9, 10
-and 13), and last the result line {"ok": true, "device": {...}}.  With
+Then a JSON line of the kernels (launches summed over the gate runs of
+phases 4-7, 9, 10 and 13, a graph's replays counted as its captured
+launches), and last the result line {"ok": true, "device": {...}}.  With
 --kernels: phases 1-3, the kernels line with launches null, and no result
 line.  With --caller: phases 1, 8, 8b and 12, and neither line.  With
 --scaleout: phases 1-3, 9-11 and 13, making only the data and the oracles
@@ -988,11 +999,13 @@ def _batches(n_pairs, data=DATA):
 
 
 def _rates(eng, batches, dev):
-    """Reads/s of passes over the batches (3 in flight): the median of 3
-    after a warm pass, or the warm pass alone when it takes over 30 s."""
+    """Reads/s of passes over the batches (the runner's 2 * group_k + 1
+    in flight): the median of 3 after a warm pass, or the warm pass alone
+    when it takes over 30 s."""
     import torch
 
     host_s = {"enqueue": 0.0, "resolve": 0.0}
+    depth = 2 * getattr(eng, "_group_k", 1) + 1
 
     def one_pass():
         t = time.time()
@@ -1008,7 +1021,7 @@ def _rates(eng, batches, dev):
             pend.append(eng.map_batch_async(s1, l1, s2, l2, read_nos=nos))
             host_s["enqueue"] += time.time() - t1
             reads += 2 * len(l1)
-            if len(pend) >= 3:
+            if len(pend) >= depth:
                 resolve()
         while pend:
             resolve()
@@ -1021,19 +1034,108 @@ def _rates(eng, batches, dev):
     else:
         rates = sorted(one_pass()[0] for _ in range(3))
         how = "median of 3 after a warm pass"
-    # host seconds per batch of the last pass: enqueue of the eager step
-    # (map_batch_async) and resolve (waiting on the copy included)
+    # host seconds per batch of the last pass: enqueue (map_batch_async:
+    # the input copies and the replay, or the eager step) and resolve
+    # (waiting on the copy included)
     per_batch = {k: v / len(batches) for k, v in host_s.items()}
     return rates, how, per_batch
 
 
+def _raw_outputs(eng, batches):
+    """The raw outputs of ``batches``, all enqueued before the first is
+    fetched: the v2 engines' (packed rows, insertion records, walk-tie
+    records) a batch, v1's one block."""
+    import numpy as np
+    from pecaller_tpu_torch.mapper.device_map2 import (FusedMapperEngine2,
+                                                       fetched)
+    pend = [eng.map_batch_async(s1, l1, s2, l2, read_nos=nos)
+            for s1, l1, s2, l2, nos in batches]
+    if isinstance(eng, FusedMapperEngine2):
+        return [[np.array(x) for x in eng._blocks(h)] for h in pend]
+    return [[fetched(h)] for h in pend]
+
+
+def _replay_ms(eng, dev, reps=5):
+    """Device ms of one batch's graph (a mesh: every shard's, in shard
+    order) by CUDA events over ``reps`` bare replays: the programs with
+    the most calls, that is the main shape key's.  The replays add into
+    the pileup counters and count no launch: run after the gates."""
+    import torch
+    progs = [p for p in eng.programs if p.capture_s is not None]
+    most = max(p.calls for p in progs)
+    progs = [p for p in progs if p.calls == most]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(dev)
+    start.record()
+    for _ in range(reps):
+        for p in progs:
+            p._graph.replay()
+    end.record()
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(end) / reps
+
+
+def graph_vs_eager(graphed, eager, batches, dev, n_check=3):
+    """The graphed engine of a gate run against the same engine built
+    with graph=False: the raw outputs of the first ``n_check`` batches
+    (one shape key: replays of the captured graph) bitwise; then, eager
+    first, each engine's reads/s (``_rates``), host ms a batch, the peak
+    device memory its passes allocated above what was allocated before
+    them (other engines stay resident) and the memory reserved after
+    them, the mesh's dispatch and fetch ms a batch; the graphs' capture
+    and instantiate seconds, the bytes their pools hold, and one batch's
+    replay in device ms."""
+    import numpy as np
+    import torch
+    from pecaller_tpu_torch.mapper.program import capture_stats
+    got = _raw_outputs(graphed, batches[:n_check])
+    want = _raw_outputs(eager, batches[:n_check])
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"batch {i}: the graphed step's output "
+                                 "differs from the eager step's")
+    if capture_stats(eager.programs)["graphs"]:
+        raise AssertionError("graph=False captured a graph")
+    out = {"bitwise_batches": n_check}
+    for name, eng in (("eager", eager), ("graph", graphed)):
+        mt = getattr(eng, "mesh_timing", None)
+        if mt is not None:
+            mt.update(dispatch_s=0.0, fetch_s=0.0, batches=0)
+        resident = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        rates, how, per_batch = _rates(eng, batches, dev)
+        r = dict(reads_per_s=rates[len(rates) // 2],
+                 reads_per_s_passes=rates, spread=_spread(rates),
+                 passes=how,
+                 host_ms_per_batch={k: 1e3 * v for k, v in per_batch.items()},
+                 peak_above_resident=torch.cuda.max_memory_allocated(dev)
+                 - resident,
+                 memory_reserved=torch.cuda.memory_reserved(dev))
+        if mt is not None and mt["batches"] and getattr(eng, "_mesh", None):
+            r.update(mesh_dispatch_ms_per_batch=1e3 * mt["dispatch_s"]
+                     / mt["batches"],
+                     mesh_fetch_ms_per_batch=1e3 * mt["fetch_s"]
+                     / mt["batches"])
+        out[name] = r
+    out["graph"].update(capture_stats(graphed.programs),
+                        replay_ms_per_batch=_replay_ms(graphed, dev))
+    out["graph_over_eager"] = (out["graph"]["reads_per_s"]
+                               / out["eager"]["reads_per_s"])
+    return out
+
+
 def main_path(n_pairs):
-    """Phase 4: the v2 path.  Returns K1/K2 launches and the host
-    oracle's engine (its pileup and insertion records serve phase 5)."""
+    """Phase 4: the v2 path, graphed, and again with group_k=3, each
+    against the host oracle; then graphed against eager.  Returns K1/K2
+    launches of the gate run and the host oracle's engine (its pileup
+    and insertion records serve phase 5)."""
     import torch
     from pecaller_tpu_torch import cli
     from pecaller_tpu_torch.formats.index_files import load_index
+    from pecaller_tpu_torch.formats.sdx import read_sdx, read_seq
     from pecaller_tpu_torch.index.nbr import load_nbr_index
+    from pecaller_tpu_torch.mapper.device_map2 import FusedMapperEngine2
     from pecaller_tpu_torch.mapper.runner import run_mapper
     from pecaller_tpu_torch.ops import sw_cuda
 
@@ -1041,13 +1143,15 @@ def main_path(n_pairs):
     make_data(n_pairs)
     t_data = time.time() - t0
     t0 = time.time()
-    load_nbr_index(os.path.join(DATA, "g"), load_index(
-        os.path.join(DATA, "g")))              # build + cache .nbx parts
+    base = os.path.join(DATA, "g")
+    index = load_index(base)
+    nbr = load_nbr_index(base, index)          # build + cache .nbx parts
     t_nbr = time.time() - t0
+    batches = _batches(n_pairs)
 
     # the port's device path: `python -m pecaller_tpu_torch pemapper
     # ... --device` (cli.parse_pemapper), in this process so the kernel
-    # launch counters are readable
+    # launch counters are readable; each shape key's step a CUDA graph
     dev_dir = _run_dir("device")
     dev = torch.device("cuda", 0)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1057,8 +1161,9 @@ def main_path(n_pairs):
     torch.cuda.synchronize(dev)
     t_dev = time.time() - t0
     launches = dict(sw_cuda.LAUNCHES)
-    if not (launches["sw_align_x"] and launches["sw_tb_rows"]):
-        raise AssertionError(f"a kernel of the path never ran: {launches}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    _check_launches("v2", launches, len(batches), ("sw_align_x",
+                                                   "sw_tb_rows"))
     n_fallback, n_tiefix = eng.n_fallback, eng.n_tiefix
 
     # the host oracle: the same command line without --device
@@ -1066,25 +1171,64 @@ def main_path(n_pairs):
     t0 = time.time()
     host = run_mapper(cli.parse_pemapper(_argv(host_dir, n_pairs, False)))
     t_host = time.time() - t0
-    got, want = _artifacts(dev_dir), _artifacts(host_dir)
-    diff = [k for k in want if got[k] != want[k]]
-    if diff:
-        raise AssertionError(f"device artifacts differ from the host "
-                             f"oracle's: {diff}")
+    want = _artifacts(host_dir)
+    _gate("v2 graphed", _artifacts(dev_dir), want)
     if want["out.summary.txt"].count(b"\n") < 5 or not want[".pileup.gz"]:
         raise AssertionError("host oracle wrote empty artifacts")
 
-    rates, how, per_batch = _rates(eng, _batches(n_pairs), dev)
+    # group_k=3 (PECALLER_GROUP_K, as the reference reads it): three
+    # batches of a key as one graph with one fetch, 7 batches in flight
+    g3_dir = _run_dir("device_g3")
+    os.environ["PECALLER_GROUP_K"] = "3"
+    sw_cuda.reset_launches()
+    try:
+        t0 = time.time()
+        eng3 = run_mapper(cli.parse_pemapper(_argv(g3_dir, n_pairs, True)))
+        torch.cuda.synchronize(dev)
+        t_g3 = time.time() - t0
+    finally:
+        del os.environ["PECALLER_GROUP_K"]
+    _check_launches("v2 group_k=3", dict(sw_cuda.LAUNCHES), len(batches),
+                    ("sw_align_x", "sw_tb_rows"))
+    if not any(p.group == 3 and p.capture_s is not None
+               for p in eng3.programs):
+        raise AssertionError("group_k=3 captured no grouped program")
+    _gate("v2 group_k=3", _artifacts(g3_dir), want)
+
+    sdx = read_sdx(base + ".sdx")
+    eager = FusedMapperEngine2(
+        sdx, read_seq(base + ".seq", sdx.genome_size), index, nbr=nbr,
+        device=dev, graph=False, paired=True, min_align=0.9, min_dist=0,
+        max_dist=500, nthreads=os.cpu_count() or 2)
+    cmp = graph_vs_eager(eng, eager, batches, dev)
+    del eager
+    rates3, how3, per_batch3 = _rates(eng3, batches, dev)
     say("main_path", pairs=n_pairs, batch=BATCH, byte_equal=sorted(want),
-        launches=launches, reads_per_s=rates[len(rates) // 2],
-        reads_per_s_passes=rates, passes=how, host_s_per_batch=per_batch,
+        launches=launches, reads_per_s=cmp["graph"]["reads_per_s"],
+        graph=cmp.pop("graph"), eager=cmp.pop("eager"), **cmp,
+        group_k_3=dict(byte_equal=sorted(want),
+                       reads_per_s=rates3[len(rates3) // 2],
+                       reads_per_s_passes=rates3, spread=_spread(rates3),
+                       passes=how3, host_ms_per_batch={
+                           k: 1e3 * v for k, v in per_batch3.items()},
+                       device_run_s=round(t_g3, 1)),
         n_fallback=n_fallback, n_tiefix=n_tiefix,
-        max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+        max_memory_allocated=peak,
         seconds=dict(data=round(t_data, 1), nbr_index=round(t_nbr, 1),
                      device_run=round(t_dev, 1), host_run=round(t_host, 1)))
-    del eng
+    del eng, eng3
     torch.cuda.empty_cache()
     return launches, host
+
+
+def _check_launches(what, launches, n_batches, kernels, per_batch=1):
+    """Each of ``kernels`` launched ``per_batch`` times a batch in the
+    run, replays of the captured graphs included."""
+    for k in kernels:
+        if launches[k] != per_batch * n_batches:
+            raise AssertionError(
+                f"{what}: {k} counted {launches[k]} launches for "
+                f"{n_batches} batches ({launches})")
 
 
 def tie_local_pileup(p_ref, p_dev, max_width=8, max_frac=0.01):
@@ -1126,7 +1270,9 @@ def tie_local_pileup(p_ref, p_dev, max_width=8, max_frac=0.01):
 
 def v1_path(n_pairs, host):
     """Phase 5: the fused v1 engine on phase 4's genome and reads,
-    against phase 4's host oracle artifacts.  Returns K3's launches."""
+    graphed, against phase 4's host oracle artifacts; then graphed
+    against eager on the first V1_RATE_BATCHES batches.  Returns K3's
+    launches."""
     import numpy as np
     import torch
     from pecaller_tpu_torch import cli
@@ -1142,12 +1288,12 @@ def v1_path(n_pairs, host):
     sdx = read_sdx(cfg.sdx_path)
     genome = read_seq(os.path.join(DATA, "g.seq"), sdx.genome_size)
     index = load_index(os.path.join(DATA, "g"))
+    kw = dict(device=dev, bisulfite=cfg.bisulfite, min_align=cfg.min_align,
+              min_dist=cfg.min_dist, max_dist=cfg.max_dist,
+              paired=cfg.paired, nthreads=cfg.nthreads)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
-    eng = FusedMapperEngine(sdx, genome, index, device=dev,
-                            bisulfite=cfg.bisulfite, min_align=cfg.min_align,
-                            min_dist=cfg.min_dist, max_dist=cfg.max_dist,
-                            paired=cfg.paired, nthreads=cfg.nthreads)
+    eng = FusedMapperEngine(sdx, genome, index, **kw)
     t_build = time.time() - t0
     batches = _batches(n_pairs)
     sw_cuda.reset_launches()
@@ -1156,9 +1302,8 @@ def v1_path(n_pairs, host):
     torch.cuda.synchronize(dev)
     t_run = time.time() - t0
     launches = dict(sw_cuda.LAUNCHES)
-    if launches["sw_align"] != 2 * len(batches):
-        raise AssertionError(f"K3 launched {launches['sw_align']} times "
-                             f"for {len(batches)} batches")
+    peak = torch.cuda.max_memory_allocated(dev)
+    _check_launches("v1", launches, len(batches), ("sw_align",), 2)
     n_fallback = eng.n_fallback
 
     got, want = _artifacts(v1_dir), _artifacts(os.path.join(DATA, "host"))
@@ -1176,9 +1321,11 @@ def v1_path(n_pairs, host):
                              "oracle's (read, length) multiset")
     pileup_equal = got[".pileup.gz"] == want[".pileup.gz"]
 
-    # reads/s over the first V1_RATE_BATCHES batches: four passes over
-    # all 13 took ~46 s of the smoke's time limit
-    rates, how, per_batch = _rates(eng, batches[:V1_RATE_BATCHES], dev)
+    # reads/s over the first V1_RATE_BATCHES batches: four eager passes
+    # over all 13 took ~46 s of the smoke's time limit
+    eager = FusedMapperEngine(sdx, genome, index, graph=False, **kw)
+    cmp = graph_vs_eager(eng, eager, batches[:V1_RATE_BATCHES], dev)
+    del eager
     say("v1_path", pairs=n_pairs, batch=BATCH,
         byte_equal=["out.summary.txt", "r1.fastq.mfile", "r2.fastq.mfile"]
         + ([".pileup.gz"] if pileup_equal else []),
@@ -1186,9 +1333,9 @@ def v1_path(n_pairs, host):
         tie_rotated_insertion_clusters=rotated, insertions=len(ins_v),
         launches=launches, batches=len(batches),
         rate_batches=len(batches[:V1_RATE_BATCHES]),
-        reads_per_s=rates[len(rates) // 2], reads_per_s_passes=rates,
-        passes=how, host_s_per_batch=per_batch, n_fallback=n_fallback,
-        max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+        reads_per_s=cmp["graph"]["reads_per_s"], graph=cmp.pop("graph"),
+        eager=cmp.pop("eager"), **cmp, n_fallback=n_fallback,
+        max_memory_allocated=peak,
         seconds=dict(engine_build=round(t_build, 1),
                      device_run=round(t_run, 1)))
     del eng
@@ -1198,13 +1345,16 @@ def v1_path(n_pairs, host):
 
 def mid_path(n_pairs):
     """Phase 6: the v2.5 path (v2 step on the quartered-key index) at the
-    bench's mid size, through the port's command line.  Returns K1/K2
-    launches and the host oracle's engine (phase 7's reference)."""
+    bench's mid size, through the port's command line, graphed; then
+    graphed against eager.  Returns K1/K2 launches and the host oracle's
+    engine (phase 7's reference)."""
     import torch
     from pecaller_tpu_torch import cli
     from pecaller_tpu_torch.formats.index_files import load_index
+    from pecaller_tpu_torch.formats.sdx import read_sdx, read_seq
     from pecaller_tpu_torch.index.quarter import load_quarter_index
-    from pecaller_tpu_torch.mapper.device_map2 import QuarterDeviceIndex
+    from pecaller_tpu_torch.mapper.device_map2 import (FusedMapperEngine2,
+                                                       QuarterDeviceIndex)
     from pecaller_tpu_torch.mapper.runner import run_mapper
     from pecaller_tpu_torch.ops import sw_cuda
 
@@ -1212,7 +1362,8 @@ def mid_path(n_pairs):
                      seed=2025)
     base = os.path.join(MID, "g")
     t0 = time.time()
-    qi = load_quarter_index(base, load_index(base))  # build + cache .q4x
+    index = load_index(base)
+    qi = load_quarter_index(base, index)             # build + cache .q4x
     t_quarter = time.time() - t0
     dev = torch.device("cuda", 0)
     torch.cuda.synchronize(dev)
@@ -1221,7 +1372,7 @@ def mid_path(n_pairs):
     torch.cuda.synchronize(dev)
     t_upload = time.time() - t0
     q_bytes = sum(a.numel() * a.element_size() for a in dq.args)
-    del dq, qi
+    del dq
     torch.cuda.empty_cache()
 
     dev_dir = _run_dir("device", MID)
@@ -1233,11 +1384,13 @@ def mid_path(n_pairs):
     torch.cuda.synchronize(dev)
     t_dev = time.time() - t0
     launches = dict(sw_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
     if getattr(eng.state.dnbr, "mode", None) != "quarter":
         raise AssertionError(f"the runner took {type(eng).__name__}, not "
                              "the v2 engine on the quartered-key index")
-    if not (launches["sw_align_x"] and launches["sw_tb_rows"]):
-        raise AssertionError(f"a kernel of the path never ran: {launches}")
+    batches = _batches(n_pairs, MID)
+    _check_launches("v2.5", launches, len(batches), ("sw_align_x",
+                                                     "sw_tb_rows"))
     n_fallback, n_tiefix = eng.n_fallback, eng.n_tiefix
     n_cap = eng.n_cap_fallback
 
@@ -1254,13 +1407,19 @@ def mid_path(n_pairs):
     if want["out.summary.txt"].count(b"\n") < 5 or not want[".pileup.gz"]:
         raise AssertionError("host oracle wrote empty artifacts")
 
-    rates, how, per_batch = _rates(eng, _batches(n_pairs, MID), dev)
+    sdx = read_sdx(base + ".sdx")
+    eager = FusedMapperEngine2(
+        sdx, read_seq(base + ".seq", sdx.genome_size), index, quarter=qi,
+        device=dev, graph=False, paired=True, min_align=0.9, min_dist=0,
+        max_dist=500, nthreads=os.cpu_count() or 2)
+    cmp = graph_vs_eager(eng, eager, batches, dev)
+    del eager, qi
     say("mid_path", genome=MID_LEN, pairs=n_pairs, batch=BATCH,
         index="quarter", byte_equal=sorted(want), launches=launches,
-        reads_per_s=rates[len(rates) // 2], reads_per_s_passes=rates,
-        passes=how, host_s_per_batch=per_batch, n_fallback=n_fallback,
+        reads_per_s=cmp["graph"]["reads_per_s"], graph=cmp.pop("graph"),
+        eager=cmp.pop("eager"), **cmp, n_fallback=n_fallback,
         n_tiefix=n_tiefix, n_cap_fallback=n_cap, quarter_bytes=q_bytes,
-        max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+        max_memory_allocated=peak,
         seconds=dict(data=made and round(made[0], 1),
                      exact_index=made and round(made[1], 1),
                      quarter_index=round(t_quarter, 1),
@@ -1501,7 +1660,7 @@ def profile_v1(n_pairs, n_batches=2):
         sdx, read_seq(os.path.join(DATA, "g.seq"), sdx.genome_size),
         load_index(os.path.join(DATA, "g")), device=dev, paired=True,
         min_align=0.9, min_dist=0, max_dist=500,
-        nthreads=os.cpu_count() or 2)
+        nthreads=os.cpu_count() or 2, graph=False)   # ranges show eager
     batches = _batches(n_pairs)[:n_batches + 1]
 
     def run(bs):
@@ -1981,12 +2140,12 @@ def _spread(rates):
 def reads_mesh(n_pairs, host_dir, cb, call_want):
     """Phase 9: the reads-axis mesh, two shards on cuda:0.  `pemapper
     ... --device` as phase 4's command line with mesh_shards 2 through
-    run_mapper(device=[cuda:0, cuda:0]): all five artifacts byte-equal
-    to the host oracle; reads/s of the mesh engine and of a one-device
-    engine on the same batches (median of 3 after a warm pass each);
-    the caller on phase 8's cohort with a 2-shard screen mesh
-    (host_screen False) byte-equal to the exact engine.  Returns K1/K2
-    launches of the mapping run."""
+    run_mapper(device=[cuda:0, cuda:0]), each shard's step a graph: all
+    five artifacts byte-equal to the host oracle; graphed against the
+    eager mesh engine (graph_vs_eager; phase 4 has one device's reads/s
+    in the same call); the caller on phase 8's cohort with a 2-shard
+    screen mesh (host_screen False) byte-equal to the exact engine.
+    Returns K1/K2 launches of the mapping run."""
     import torch
     from pecaller_tpu_torch import cli
     from pecaller_tpu_torch.caller import CallerConfig, run_caller
@@ -2012,26 +2171,24 @@ def reads_mesh(n_pairs, host_dir, cb, call_want):
     peak = torch.cuda.max_memory_allocated(dev)
     if eng._n_sh != 2 or len(eng.states) != 2:
         raise AssertionError("the runner did not build a 2-shard mesh")
-    if not (launches["sw_align_x"] and launches["sw_tb_rows"]):
-        raise AssertionError(f"a kernel of the path never ran: {launches}")
+    batches = _batches(n_pairs)
+    _check_launches("reads mesh", launches, len(batches),
+                    ("sw_align_x", "sw_tb_rows"), 2)
     want = _artifacts(host_dir)
     _gate("reads-axis mesh", _artifacts(d), want)
-    mt = dict(eng.mesh_timing)
     n_fallback, n_tiefix = eng.n_fallback, eng.n_tiefix
 
     base = os.path.join(DATA, "g")
     sdx = read_sdx(base + ".sdx")
     index = load_index(base)
-    single = FusedMapperEngine2(
+    eager = FusedMapperEngine2(
         sdx, read_seq(base + ".seq", sdx.genome_size), index,
         nbr=load_nbr_index(base, index), device=dev, paired=True,
         min_align=cfg.min_align, min_dist=cfg.min_dist,
-        max_dist=cfg.max_dist, nthreads=cfg.nthreads)
-    batches = _batches(n_pairs)
-    r_one, how, pb_one = _rates(single, batches, dev)
-    del single
-    r_mesh, _, pb_mesh = _rates(eng, batches, dev)
-    del eng
+        max_dist=cfg.max_dist, nthreads=cfg.nthreads, graph=False,
+        mesh=make_mesh(2, 1, [dev, dev]))
+    cmp = graph_vs_eager(eng, eager, batches, dev)
+    del eng, eager
     torch.cuda.empty_cache()
 
     cfg_c = CallerConfig(
@@ -2044,13 +2201,8 @@ def reads_mesh(n_pairs, host_dir, cb, call_want):
     rate, rates, res = _call_passes(lambda: run_caller(cfg_c))
     say("reads_mesh", shards=2, devices=[str(dev)] * 2, pairs=n_pairs,
         batch=BATCH, byte_equal=sorted(want), launches=launches,
-        reads_per_s=r_mesh[len(r_mesh) // 2], reads_per_s_passes=r_mesh,
-        spread=_spread(r_mesh), one_device_reads_per_s=r_one[len(r_one) // 2],
-        one_device_reads_per_s_passes=r_one,
-        one_device_spread=_spread(r_one), passes=how,
-        host_s_per_batch=pb_mesh, one_device_host_s_per_batch=pb_one,
-        mesh_dispatch_ms_per_batch=1e3 * mt["dispatch_s"] / mt["batches"],
-        mesh_fetch_ms_per_batch=1e3 * mt["fetch_s"] / mt["batches"],
+        reads_per_s=cmp["graph"]["reads_per_s"], graph=cmp.pop("graph"),
+        eager=cmp.pop("eager"), **cmp,
         n_fallback=n_fallback, n_tiefix=n_tiefix, max_memory_allocated=peak,
         seconds=dict(device_run=round(t_run, 1)),
         caller=dict(shards=2, byte_equal=sorted(call_want),

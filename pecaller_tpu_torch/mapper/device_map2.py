@@ -27,6 +27,7 @@ those of the reference's wrapping uint32 counters.
 from __future__ import annotations
 
 import ctypes
+import os
 import time
 import warnings
 from dataclasses import dataclass
@@ -46,6 +47,7 @@ from .engine import (
     UNIQUE_MIS, UNIQUE_SINGLE, UNIQUE_SLIP, MapperEngine)
 from .host_prep import (_bucket_b, _pad_to, contig_pad,
                         exact_score_threshold_amb, pack_genome, segments_of)
+from .program import StepProgram
 from .seeds import revcomp_batch, segment_offsets
 
 PAD_SCORE = -36
@@ -114,9 +116,11 @@ def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def fetch_async(out: torch.Tensor, device: torch.device) -> dict:
     """Start the copy of a batch's result to the host: on a card one
-    pinned copy and an event, waited on by ``fetched``."""
+    pinned copy and an event, waited on by ``fetched``; on the CPU a
+    copy.  Either way the copy is taken now, so the next call of a
+    ``StepProgram`` may overwrite ``out``."""
     if device.type != "cuda":
-        return {"host": out}
+        return {"host": out.clone()}
     host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
     host.copy_(out, non_blocking=True)
     event = torch.cuda.Event()
@@ -1227,7 +1231,7 @@ class FusedStep2(DecideLayer):
             trank = trank + n_tied[:comm.index].sum()
         t_over = tied & (trank > tie_cap)
         fb_over = torch.zeros(U + 1, dtype=torch.bool, device=self.dev)
-        fb_over[torch.where(t_over, uw, U)] = True        # row U: dump
+        fb_over.index_fill_(0, torch.where(t_over, uw, U), True)  # U: dump
         fb_over = pairize(fb_over[:U])
         if comm is not None:
             fb_over = (yield from comm.pmax(fb_over.to(I32))) > 0
@@ -1332,14 +1336,31 @@ class FusedMapperEngine2(MapperEngine):
     partials are summed at ``final_pileup``.  Shards on one device share
     that device's index tensors.  ``mesh_timing`` sums the host seconds
     of staging and enqueuing the shards (dispatch) and of waiting for
-    their results (fetch) over the batches."""
+    their results (fetch) over the batches.
+
+    Each shape key's step runs as a ``StepProgram`` (a shard's step as
+    one a shard): on a card a CUDA graph captured at the key's second
+    batch and replayed from then on; ``graph=False`` runs the eager step
+    instead (the counterpart of ``build_fused_step2(..., jit=False)``).
+    ``group_k`` (default: ``PECALLER_GROUP_K``, else 1) batches of one
+    key run as one program with one fetch to the host, as the reference's
+    ``build_fused_multi``; a partial group (a key change, or ``resolve``
+    of a batch still staged) runs as single-batch programs.  The mesh
+    path does not group, as in the reference."""
 
     def __init__(self, *args, nbr: NbrIndex | None = None,
                  quarter: QuarterIndex | None = None,
                  force_quarter: bool = False, t1: int = 4, rcap: int = 12,
                  hv: int = 0, device="cuda", ins_cap: int = INS_CAP,
-                 tie_cap: int = TIE_CAP, mesh=None, **kwargs):
+                 tie_cap: int = TIE_CAP, mesh=None, group_k: int | None = None,
+                 graph: bool = True, **kwargs):
         super().__init__(*args, **kwargs)
+        if group_k is None:
+            group_k = int(os.environ.get("PECALLER_GROUP_K", "1"))
+        self._group_k = max(1, group_k)
+        self._graph = graph
+        self._staged = []
+        self._programs = {}
         self._mesh = mesh if mesh is not None and mesh.size > 1 else None
         self._n_sh = mesh.size if self._mesh is not None else 1
         self.device = (mesh.flat[0] if self._mesh is not None
@@ -1406,8 +1427,25 @@ class FusedMapperEngine2(MapperEngine):
             else:
                 from ..parallel.mesh import sharded_fused_step2
                 self._steps[key] = sharded_fused_step2(
-                    self._mesh, self.states, **kw)[0]
+                    self._mesh, self.states, graph=self._graph, **kw)[0]
         return self._steps[key]
+
+    def _program_for(self, K, key):
+        """The program of ``K`` batches of shape ``key`` on one device."""
+        if (K, key) not in self._programs:
+            step, state = self._step_for(*key), self.state
+            self._programs[K, key] = StepProgram(
+                lambda *ins: step(state, *ins), self.device, group=K,
+                graph=self._graph)
+        return self._programs[K, key]
+
+    @property
+    def programs(self) -> list:
+        """Every StepProgram the engine has built (on a mesh, each
+        shard's)."""
+        return ([p for st in self._steps.values()
+                 for p in getattr(st, "programs", ())]
+                + list(self._programs.values()))
 
     def _prep_end2(self, seqs, lens, B, M, s_max):
         """Pad the raw reads and compute the per-read scalars (encoding,
@@ -1448,23 +1486,53 @@ class FusedMapperEngine2(MapperEngine):
         N = _pad_to(M + 2 * MISALIGN_SLOP + 1, 16)
         mr = _pad_to(max(maxlen, 32), 8)
         s_max = self._seg_bucket(segments_of(maxlen))
-        step = self._step_for(B, M, N, s_max, mr)
+        key = (B, M, N, s_max, mr)
         ins = self._prep_end2(seqs1, lens1, B, M, s_max)
         if self.paired:
             a2 = self._prep_end2(seqs2, lens2, B, M, s_max)
             ins = [np.concatenate([x, y], axis=0) for x, y in zip(ins, a2)]
         h = dict(seqs1=seqs1, lens1=lens1, seqs2=seqs2, lens2=lens2,
-                 read_nos=read_nos, n=seqs1.shape[0], B=B)
+                 read_nos=read_nos, n=seqs1.shape[0], B=B, key=key)
         if self._mesh is None:
-            out = step(self.state, *(to_device(x, self.device) for x in ins))
-            h.update(fetch_async(out, self.device))
+            h["ins"] = ins
+            self._stage(h)
         else:
+            step = self._step_for(*key)
             t0 = time.perf_counter()
             outs = step(self._shard_inputs(ins, B))
             self.mesh_timing["dispatch_s"] += time.perf_counter() - t0
             self.mesh_timing["batches"] += 1
             h["shards"] = [fetch_async(o, o.device) for o in outs]
         return h
+
+    def _stage(self, h):
+        """Stage a batch; ``group_k`` staged batches of one key run as
+        one program.  A batch of another key first flushes the partial
+        group."""
+        if self._staged and self._staged[0]["key"] != h["key"]:
+            self._flush_staged()
+        self._staged.append(h)
+        if len(self._staged) >= self._group_k:
+            self._flush_staged()
+
+    def _flush_staged(self):
+        """Run the staged batches: a full group as one program, a
+        partial group as single-batch programs (so that a key has one
+        grouped program, as in the reference)."""
+        staged, self._staged = self._staged, []
+        if len(staged) == self._group_k:
+            self._dispatch(staged)
+        else:
+            for h in staged:
+                self._dispatch([h])
+
+    def _dispatch(self, hs):
+        """Run the batches ``hs`` as one program and start the one copy
+        of their outputs to the host."""
+        prog = self._program_for(len(hs), hs[0]["key"])
+        g = fetch_async(prog([h.pop("ins") for h in hs]), self.device)
+        for i, h in enumerate(hs):
+            h["group"], h["gi"] = g, i
 
     def _shard_inputs(self, ins, B):
         from ..parallel.mesh import shard_units
@@ -1495,7 +1563,12 @@ class FusedMapperEngine2(MapperEngine):
         renumbered to the single step's end-major units."""
         B = h["B"]
         if "shards" not in h:
-            out = fetched(h)
+            if "ins" in h:
+                self._flush_staged()            # h is still staged
+            g = h.pop("group")
+            if "out" not in g:
+                g["out"] = fetched(g)           # one fetch a group
+            out = g["out"][h["gi"]]
             return (out[:B], *self._records(out, B))
         outs = self._fetch_shards(h)
         bl = B // len(outs)

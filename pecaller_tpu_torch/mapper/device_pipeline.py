@@ -34,13 +34,13 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..ops import sw
 from ..ops.sw_cuda import sw_align
-from .device_map2 import (DecideLayer, fetch_async, fetched, to_device,
-                          windows)
+from .device_map2 import DecideLayer, fetch_async, fetched, windows
 from .device_seeds import (HIT_CAP, DeviceSeedIndex, host_bits_rev,
                            seed_chain_core)
 from .engine import MISALIGN_SLOP, MapperEngine
 from .host_prep import (_bucket_b, _pad_to, contig_pad,
                         exact_score_threshold, segments_of)
+from .program import StepProgram
 from .seeds import revcomp_batch, segment_offsets
 
 PAD_SCORE = -36          # -1.0 x36: the reference's dvector padding
@@ -311,12 +311,19 @@ class FusedMapperEngine(MapperEngine):
     packed result and the insertion records in one copy.  Reads the step
     flags as fallbacks are re-mapped by the exact host engine
     (``MapperEngine``).  ``device`` defaults to the first CUDA device; a
-    CPU device, named by the caller, runs the plain version of K3."""
+    CPU device, named by the caller, runs the plain version of K3.
+
+    Each shape key's step, with the concatenation of its outputs into
+    the one block fetched, runs as a ``StepProgram``: on a card a CUDA
+    graph captured at the key's second batch; ``graph=False`` runs the
+    eager step (the ``torch.profiler`` ranges of ``_ranged`` show only
+    there)."""
 
     def __init__(self, *args, device="cuda", ins_cap: int = INS_CAP,
-                 **kwargs):
+                 graph: bool = True, **kwargs):
         super().__init__(*args, **kwargs)
         self.device = resolve_device(device)
+        self._graph = graph
         gs = self.sdx.genome_size
         if gs >= 2 ** 30:
             raise ValueError("fused device engine requires genome < 2^30 "
@@ -331,19 +338,35 @@ class FusedMapperEngine(MapperEngine):
             torch.from_numpy(contig_pad(ist, self.sdx.n_contigs)).to(
                 self.device),
             torch.zeros(gs * 6, dtype=I32, device=self.device))
-        self._steps = {}
+        self._programs = {}
         self.n_fallback = 0
 
-    def _step_for(self, B, M, N, s_max):
+    def _program_for(self, B, M, N, s_max):
+        """The program of shape (B, M, N, s_max): the step, then its
+        packed rows and each end's records (padded to 6 columns) as one
+        block, so that a batch takes one copy to the host."""
         key = (B, M, N, s_max)
-        if key not in self._steps:
-            self._steps[key] = FusedStep(
+        if key not in self._programs:
+            step = FusedStep(
                 self.state.dindex, paired=self.paired,
                 bisulfite=self.bisulfite, min_dist=self.min_dist,
                 max_dist=self.max_dist, n_contigs=self.sdx.n_contigs,
                 genome_size=self.sdx.genome_size, B=B, M=M, N=N,
                 s_max=s_max, ins_cap=self.ins_cap)
-        return self._steps[key]
+            state = self.state
+
+            def block(*ins):
+                packed, rec1, rec2 = step(state, *ins)
+                return torch.cat([packed, F.pad(rec1, (0, 2)),
+                                  F.pad(rec2, (0, 2))])
+            self._programs[key] = StepProgram(block, self.device,
+                                              graph=self._graph)
+        return self._programs[key]
+
+    @property
+    def programs(self) -> list:
+        """Every StepProgram the engine has built."""
+        return list(self._programs.values())
 
     def _prep_end(self, seqs, lens, B, M, s_max):
         n = seqs.shape[0]
@@ -384,18 +407,13 @@ class FusedMapperEngine(MapperEngine):
         M = _pad_to(max(maxlen, 32), 16)
         N = _pad_to(M + 2 * MISALIGN_SLOP + 1, 32)
         s_max = self._seg_bucket(segments_of(maxlen))
-        step = self._step_for(B, M, N, s_max)
+        program = self._program_for(B, M, N, s_max)
         ins = list(self._prep_end(seqs1, lens1, B, M, s_max))
         if self.paired:
             ins += self._prep_end(seqs2, lens2, B, M, s_max)
-        packed, rec1, rec2 = step(self.state, *(to_device(x, self.device)
-                                                for x in ins))
-        # rows [:B] packed, then each end's records (padded to 6 columns):
-        # one copy to the host per batch
-        out = torch.cat([packed, F.pad(rec1, (0, 2)), F.pad(rec2, (0, 2))])
         return dict(seqs1=seqs1, lens1=lens1, seqs2=seqs2, lens2=lens2,
                     read_nos=read_nos, n=seqs1.shape[0], B=B,
-                    **fetch_async(out, self.device))
+                    **fetch_async(program([ins])[0], self.device))
 
     def resolve(self, h):
         out = fetched(h)

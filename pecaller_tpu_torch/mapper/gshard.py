@@ -18,7 +18,9 @@ The shards' steps run in lockstep in this process (``parallel.mesh``:
 one generator a shard, reduced in shard order).  Reads are replicated
 over the genome axis (a batch is ~4 MB; the index is the heavy
 operand).  The public engine API (map_batch_async / resolve /
-final_pileup) is that of FusedMapperEngine2.
+final_pileup) is that of FusedMapperEngine2.  The shards' steps run
+eagerly, not as CUDA graphs (``mapper/program.py``): a step yields at
+each collective, so it would take one graph a segment between yields.
 
 One divergence from the reference: where the shards' merged walk-tie
 records would pass ``tie_cap`` the reference raises; here the step
@@ -91,6 +93,7 @@ class OctileShardedEngine(FusedMapperEngine2):
         self.device = mesh.flat[0]
         self.ins_cap, self.tie_cap = ins_cap, tie_cap
         self._steps = {}
+        self._programs = {}             # the shards' steps stay eager
         self.n_fallback = 0
         self.n_tiefix = 0
         self.mesh_timing = {"dispatch_s": 0.0, "fetch_s": 0.0, "batches": 0}

@@ -83,11 +83,6 @@ def _strip_sdx(path: str) -> str:
     return path
 
 
-# batches in flight: the device maps the next batches while the host
-# resolves the oldest
-PIPELINE_DEPTH = 3
-
-
 SPLIT_GENOME = 2 ** 30     # int32 device coordinates end here
 
 
@@ -209,11 +204,14 @@ def map_files(cfg: MapperConfig, eng: MapperEngine, sdx, genome):
         eng._order_counter = order_base
         maps1_parts, maps2_parts = [], []
         if hasattr(eng, "map_batch_async"):
+            # batches in flight: the device maps the next (possibly
+            # grouped) program while the host resolves the oldest batch
+            depth = 2 * getattr(eng, "_group_k", 1) + 1
             pend = []
             for s1, l1, s2, l2, nos in batcher.batches():
                 pend.append(eng.map_batch_async(s1, l1, s2, l2,
                                                 read_nos=nos))
-                if len(pend) >= PIPELINE_DEPTH:
+                if len(pend) >= depth:
                     m1, m2, _ = eng.resolve(pend.pop(0))
                     maps1_parts.append(m1)
                     maps2_parts.append(m2)

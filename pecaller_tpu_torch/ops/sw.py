@@ -221,12 +221,13 @@ def sw_traceback_device(refs, blens, reads, rlens, bt_k, bt_i,
     rec_i, rec_dj, ins_j, ins_len = (torch.stack(c, dim=1).to(i16)
                                      for c in cols)
 
-    # resolve event kinds in one pass
-    base_map = torch.full((256,), -1, dtype=torch.int8, device=dev)
-    for code, ch in enumerate(b"ACGT"):
-        base_map[ch] = code
+    # resolve event kinds in one pass: the read base's code (A, C, G, T:
+    # 0-3; any other byte -1), from comparisons, as a table built on the
+    # device would take host-to-device copies (not capturable in a graph)
     rbj = torch.gather(reads, 1, rec_dj.clamp(0, M - 1).to(torch.int64))
-    kind = base_map[rbj.to(torch.int64)].to(I32)
+    kind = torch.full(rbj.shape, -1, dtype=I32, device=dev)
+    for code, ch in enumerate(b"ACGT"):
+        kind = torch.where(rbj == ch, code, kind)
     ev_kind = torch.where(rec_dj >= 0,
                           torch.where(kind >= 0, kind, EV_NONE),
                           torch.where(rec_dj == -2, EV_DEL, EV_NONE))

@@ -9,7 +9,10 @@ the wrapper raises: there is no fallback.  The kernels are compiled
 with ``nvcc`` for ``sm_90a`` at first use into ``build/kernels/`` at
 the root of the checkout (one ``nvcc -c`` per source, all started
 together, then one link; rebuilt when a source changes) and loaded with
-ctypes.  Each wrapper counts its launches in ``LAUNCHES``.
+ctypes.  Each wrapper counts its launches in ``LAUNCHES``.  A CUDA
+graph's capture runs no kernel, so the program that captures takes the
+capture's counts back out (``launches_since``) and adds them again on
+each replay (``count_replay``, ``mapper/program.py``).
 """
 
 from __future__ import annotations
@@ -42,6 +45,21 @@ _LIB = None
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def launches_since(before: dict) -> dict:
+    """The launches counted since ``before`` (a copy of ``LAUNCHES``),
+    taken back out of ``LAUNCHES``: the wrappers counted them while a
+    graph was captured, and a capture launches nothing."""
+    moved = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    LAUNCHES.update(before)
+    return moved
+
+
+def count_replay(launches: dict) -> None:
+    """Count the kernel launches of one replay of a captured graph."""
+    for k, v in launches.items():
+        LAUNCHES[k] += v
 
 
 def _nvcc() -> str:

@@ -27,6 +27,7 @@ devices:
 from __future__ import annotations
 
 from dataclasses import replace
+from functools import partial
 
 import numpy as np
 import torch
@@ -166,17 +167,22 @@ def shard_states(mesh: Mesh, base_states: dict, n_counts: int) -> list:
 def sharded_fused_step2(mesh: Mesh, states: list, *, paired: bool,
                         bisulfite: bool, min_dist: int, max_dist: int,
                         n_contigs: int, B: int, M: int, N: int, s_max: int,
-                        max_rlen: int | None = None, **caps):
+                        max_rlen: int | None = None, graph: bool = True,
+                        **caps):
     """The v2 fused step over every shard of ``mesh`` on the reads axis.
 
     ``states`` holds each shard's DeviceState (``shard_states``).
     Returns (step, n_shards): ``step(ins)`` takes the batch arrays of
     the single step, each split by ``shard_units`` to (n_shards, ...),
-    runs one FusedStep2 of B / n_shards pairs a shard on its device,
+    runs one FusedStep2 of B / n_shards pairs a shard on its device, as
+    one ``StepProgram`` a shard (``graph``: a CUDA graph on a card; the
+    shards on one device replay in shard order on its current stream),
     adds into that shard's ``dev_counts`` and returns the shards' packed
-    output blocks (tensors on their devices).  ``caps``: ins_cap,
-    tie_cap."""
-    from ..mapper.device_map2 import FusedStep2, to_device
+    output blocks (tensors on their devices, overwritten by the next
+    call).  ``step.steps`` and ``step.programs`` list the shards'
+    FusedStep2 and programs.  ``caps``: ins_cap, tie_cap."""
+    from ..mapper.device_map2 import FusedStep2
+    from ..mapper.program import StepProgram
     n_shards = mesh.size
     if B % n_shards:
         raise ValueError(f"B={B} must divide by n_shards={n_shards}")
@@ -185,11 +191,14 @@ def sharded_fused_step2(mesh: Mesh, states: list, *, paired: bool,
                         n_contigs=n_contigs, B=B // n_shards, M=M, N=N,
                         s_max=s_max, max_rlen=max_rlen, **caps)
              for st in states]
+    programs = [StepProgram(partial(fn, st), st.dev_counts.device,
+                            graph=graph) for fn, st in zip(steps, states)]
 
     def step(ins):
-        return [fn(st, *(to_device(x[s], st.dev_counts.device) for x in ins))
-                for s, (fn, st) in enumerate(zip(steps, states))]
+        return [prog([[x[s] for x in ins]])[0]
+                for s, prog in enumerate(programs)]
     step.steps = steps
+    step.programs = programs
     return step, n_shards
 
 
