@@ -58,18 +58,26 @@ Phases (each prints one line; any failure raises and exits non-zero):
      graph_vs_eager; fallbacks, re-walked ties, units the probe's caps
      sent to the host, peak device memory
   7. split path: the split engine (DeviceMapperEngine: SW scores by K3,
-     eager traceback and 2-byte pileup counters on the card) on phase
-     6's data, as the runner builds it at 2^30 bases and more (host
-     seeds), and once with device seeds: phase 5's gate against phase
-     6's host oracle, K3 launched twice per batch; K3 at the engine's
-     shape (kernel, plain and bound), the seed step's and the eager
-     traceback's host seconds per batch, reads/s over the gate run's
-     batches, peak device memory
+     the traceback and 2-byte pileup counters on the card, the seed step
+     and the traceback each one graph a shape key) on phase 6's data, as
+     the runner builds it at 2^30 bases and more (host seeds), and once
+     with device seeds: phase 5's gate against phase 6's host oracle, K3
+     launched twice per batch; K3 at the engine's shape (kernel, plain
+     and bound), host seconds per batch of the seed step, the traceback
+     and the batch, reads/s over the gate run's batches, the graphs'
+     capture seconds and pool bytes, peak device memory; then the
+     device-seed engine against one built with graph=False on the same
+     seed index (split_graph_vs_eager): every seed step's and
+     traceback's output, the pileup and the insertion records bitwise
+     over one pass of every batch each, with each one's reads/s and host
+     seconds
   7b. human-scale counters: the split engine's (3.1e9, 6) int16 pileup
      (37.2 GB) on the card, pileup_scatter with sw_traceback_scatter's
      event layout at positions on both sides of 2^30 and 2^31 and in the
-     genome's last window, one cell pushed past 65,535; the touched rows
-     equal np.add.at on uint16
+     genome's last window, one cell pushed past 65,535, as a program
+     called three times (eager, captured, replayed); the touched rows
+     after each call equal np.add.at on uint16; the graph's pool bytes
+     and phase 7's beside the counters
   8. caller: bench.py's caller cohort (3 samples, Poisson depth 30, seed
      77, SNPs 1/1500, deletions and insertions 1/8000 each) over phase
      4's genome, made once under .smoke/callbench/; the exact native
@@ -104,10 +112,13 @@ Phases (each prints one line; any failure raises and exits non-zero):
   10. genome-sharded octile: phase 6's data; plan_shards(sdx, 2) and
      build_octile_shards timed, each shard's table bytes; the
      OctileShardedEngine with both shards on cuda:0, built directly as
-     phase 5 builds v1, through map_files: all five artifacts byte-equal
-     to phase 6's host oracle, K1 and K2 launched; reads/s (median of 3
-     after a warm pass), fallbacks, re-walked ties, peak device memory;
-     what hg38 would need (at least 12 shards)
+     phase 5 builds v1, each batch's step (both shards and their seven
+     collectives) one graph a shape key, through map_files: all five
+     artifacts byte-equal to phase 6's host oracle, K1 and K2 launched;
+     graph_vs_eager against the engine on the same shards with
+     graph=False (the mesh's dispatch and fetch ms a batch among its
+     figures); fallbacks, re-walked ties, peak device memory; what hg38
+     would need (at least 12 shards)
   11. multi-process: two processes joined by init_distributed (gloo on
      localhost), both on cuda:0; run_mapper_distributed on phase 4's
      reads split into two fastq pairs (the parts' pileups merge to the
@@ -128,10 +139,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
      path's outputs equal to the native run's, ms a 1024-site chunk
      (CUDA events), peak memory
   13. the sharded steps: sharded_map_step on two shards of cuda:0 at
-     8,192 lanes of the v1 shape (K3 on each shard), score, bk, bi and
-     the reduce-scattered pileup blocks bitwise against the one-device
-     plain path, bisulfite off and on; sharded_call_step equal to
-     site_likelihoods on one device
+     8,192 lanes of the v1 shape (K3 on each shard), the whole step one
+     graph, called eagerly, captured and replayed: score, bk, bi and the
+     reduce-scattered pileup blocks bitwise against the one-device plain
+     path and against the step with graph=False, bisulfite off and on;
+     sharded_call_step equal to site_likelihoods on one device
 
 Then a JSON line of the kernels (launches summed over the gate runs of
 phases 4-7, 9, 10 and 13, a graph's replays counted as its captured
@@ -1430,16 +1442,109 @@ def mid_path(n_pairs):
     return launches, host
 
 
+def _split_timers(eng, keep=False):
+    """Time the split engine ``eng``'s batches, seed step and traceback
+    on the host clock: returns lists of seconds a call (``batch``,
+    ``seed``: the host seeder, or the device step's dispatch and its
+    wait, both ends dispatched before the first wait; ``traceback``: the
+    program's input copies, replay and the wait for its records), and
+    with ``keep`` the outputs of each seed step and traceback (``seeds``,
+    ``rec``, host arrays in call order)."""
+    import numpy as np
+    acc = {"batch": [], "seed": [], "traceback": []}
+    if keep:
+        acc.update(seeds=[], rec=[])
+
+    def timer(name, what, out=None):
+        fn = getattr(eng, name)
+
+        def run(*a, **k):
+            t = time.time()
+            res = fn(*a, **k)
+            acc[what].append(time.time() - t)
+            if out is not None:
+                acc[out].append([np.array(x) for x in (
+                    res if isinstance(res, tuple) else (res,))])
+            return res
+        setattr(eng, name, run)
+    timer("map_batch", "batch")
+    if eng._seed_fns is None:
+        timer("_initial_map", "seed")
+    else:
+        timer("_initial_map_dispatch", "seed")
+        timer("_initial_map_resolve", "seed", "seeds" if keep else None)
+    timer("_traceback", "traceback", "rec" if keep else None)
+    return acc
+
+
+def _split_rate(acc, batches):
+    """Reads/s of the batches' map_batch seconds, and host seconds a
+    batch of the seed step, the traceback and the whole batch."""
+    n = len(batches)
+    return dict(reads_per_s=2 * sum(len(b[1]) for b in batches)
+                / sum(acc["batch"]),
+                host_s_per_batch={k: sum(acc[k]) / n for k in (
+                    "seed", "traceback", "batch")},
+                traceback_calls=len(acc["traceback"]))
+
+
+def split_graph_vs_eager(graphed, eager, batches, dev):
+    """The split engine of a gate run (device seeds, graphed) against one
+    built with graph=False on the same seed index: both map every batch
+    once (eager first; the graphed engine's counters and records reset,
+    its programs captured in the gate run, so its keys replay); every
+    seed step's and traceback's output, the final pileup and the
+    insertion records bitwise; reads/s and host seconds a batch of each
+    (``_split_rate``); the graphs' capture and instantiate seconds and
+    pool bytes."""
+    import numpy as np
+    import torch
+    from pecaller_tpu_torch.mapper.program import capture_stats
+    graphed.reset_group()
+    out, seen = {}, {}
+    for name, eng in (("eager", eager), ("graph", graphed)):
+        acc = _split_timers(eng, keep=True)
+        for s1, l1, s2, l2, nos in batches:
+            eng.map_batch(s1, l1, s2, l2, read_nos=nos)
+        torch.cuda.synchronize(dev)
+        seen[name] = (acc["seeds"], acc["rec"], eng.final_pileup(),
+                      sorted(eng.ins_records))
+        out[name] = _split_rate(acc, batches)
+    for i, what in enumerate(("seed step", "traceback")):
+        a, b = seen["graph"][i], seen["eager"][i]
+        if len(a) != len(b) or not all(
+                np.array_equal(x, y) for u, v in zip(a, b)
+                for x, y in zip(u, v)):
+            raise AssertionError(f"the graphed {what}'s outputs differ "
+                                 "from the eager one's")
+    if not np.array_equal(seen["graph"][2], seen["eager"][2]) or \
+            seen["graph"][3] != seen["eager"][3]:
+        raise AssertionError("graphed and eager split engines' pileups or "
+                             "insertion records differ")
+    if capture_stats(eager.programs)["graphs"]:
+        raise AssertionError("graph=False captured a graph")
+    out["graph"].update(capture_stats(graphed.programs))
+    out.update(bitwise_batches=len(batches),
+               bitwise_seed_steps=len(seen["graph"][0]),
+               bitwise_tracebacks=len(seen["graph"][1]),
+               graph_over_eager=out["graph"]["reads_per_s"]
+               / out["eager"]["reads_per_s"])
+    return out
+
+
 def split_path(n_pairs, host):
     """Phase 7: the split engine on phase 6's data, with host seeds (the
     runner's configuration at 2^30 bases and more) and with device
-    seeds, each gated as v1 against phase 6's host oracle.  Returns K3's
-    launches summed over both runs."""
+    seeds, each gated as v1 against phase 6's host oracle, its seed
+    steps and tracebacks graphed; then the device-seed engine against
+    graph=False (``split_graph_vs_eager``).  Returns K3's launches
+    summed over both gate runs and the graphs' pool bytes of each."""
     import torch
     from pecaller_tpu_torch import cli
     from pecaller_tpu_torch.formats.index_files import load_index
     from pecaller_tpu_torch.formats.sdx import read_sdx, read_seq
     from pecaller_tpu_torch.mapper.device_engine import DeviceMapperEngine
+    from pecaller_tpu_torch.mapper.program import capture_stats
     from pecaller_tpu_torch.mapper.runner import map_files
     from pecaller_tpu_torch.ops import sw, sw_cuda
 
@@ -1451,49 +1556,29 @@ def split_path(n_pairs, host):
     p_host = host.final_pileup()
     ins_h = sorted((k, len(s)) for k, _, s in host.ins_records)
     want = _artifacts(os.path.join(MID, "host"))
-    k3_launches = 0
-    align, scatter = sw_cuda.sw_align, sw.sw_traceback_scatter
+    k3_launches, pools = 0, {}
+    align = sw_cuda.sw_align
     for seeds in ("host", "device"):
         d = _run_dir(f"split_{seeds}", MID)
         cfg = cli.parse_pemapper(_argv(d, n_pairs, True, MID))
+        kw = dict(bisulfite=cfg.bisulfite, min_align=cfg.min_align,
+                  min_dist=cfg.min_dist, max_dist=cfg.max_dist,
+                  paired=cfg.paired, nthreads=cfg.nthreads)
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.time()
         eng = DeviceMapperEngine(
             sdx, genome, index, device=dev, device_seeds=seeds == "device",
-            bisulfite=cfg.bisulfite, min_align=cfg.min_align,
-            min_dist=cfg.min_dist, max_dist=cfg.max_dist,
-            paired=cfg.paired, nthreads=cfg.nthreads)
+            **kw)
         t_build = time.time() - t0
-        # the engine's largest K3 call; host seconds of the traceback, of
-        # the seed step and of whole batches
-        seen, tb_s, seed_s, batch_s = {}, [], [], []
+        # the engine's largest K3 call
+        seen = {}
 
         def k3(refs, *a, **k):
             if refs.shape[0] >= seen.get("lanes", 0):
                 seen.update(lanes=refs.shape[0], args=(refs, *a), kw=k)
             return align(refs, *a, **k)
-
-        def tb(*a, **k):
-            torch.cuda.synchronize(dev)
-            t = time.time()
-            out = scatter(*a, **k)
-            torch.cuda.synchronize(dev)
-            tb_s.append(time.time() - t)
-            return out
-        def timer(fn, acc):
-            def run(*a, **k):
-                t = time.time()
-                out = fn(*a, **k)
-                acc.append(time.time() - t)
-                return out
-            return run
-        eng.map_batch = timer(eng.map_batch, batch_s)
-        # the seed step: the host seeder, or the device step's enqueue
-        # and its wait (both ends are enqueued before the first wait)
-        for name in (("_initial_map",) if seeds == "host" else
-                     ("_initial_map_dispatch", "_initial_map_resolve")):
-            setattr(eng, name, timer(getattr(eng, name), seed_s))
-        sw_cuda.sw_align, sw.sw_traceback_scatter = k3, tb
+        acc = _split_timers(eng)
+        sw_cuda.sw_align = k3
         try:
             sw_cuda.reset_launches()
             t0 = time.time()
@@ -1502,7 +1587,7 @@ def split_path(n_pairs, host):
             t_run = time.time() - t0
             launches = dict(sw_cuda.LAUNCHES)
         finally:
-            sw_cuda.sw_align, sw.sw_traceback_scatter = align, scatter
+            sw_cuda.sw_align = align
         if launches["sw_align"] != 2 * len(batches):
             raise AssertionError(f"K3 launched {launches['sw_align']} "
                                  f"times for {len(batches)} batches")
@@ -1520,13 +1605,23 @@ def split_path(n_pairs, host):
                                  "differ from the host oracle's (read, "
                                  "length) multiset")
         n_fallback = eng.n_fallback
+        peak = torch.cuda.max_memory_allocated(dev)
+        # map_batch returns the batch's result on the host, so its
+        # seconds are the batch's; the first batch is timed too (the
+        # kernels were built and loaded in phase 3)
+        rate, batch_s = _split_rate(acc, batches), list(acc["batch"])
+        graphs = capture_stats(eng.programs)
+        if not graphs["graphs"]:
+            raise AssertionError(f"split ({seeds} seeds): no program "
+                                 "captured a graph")
+        pools[seeds] = graphs["pool_bytes"]
 
         # K3 at the engine's shape: kernel against plain, bitwise, timed
-        args, kw = seen["args"], seen["kw"]
+        args, kw3 = seen["args"], seen["kw"]
         refs, bl, reads, rl = args
-        nr = kw["n_rows"]
-        kk = align(*args, **kw)
-        pp = sw.sw_align_device(*args, **kw)
+        nr = kw3["n_rows"]
+        kk = align(*args, **kw3)
+        pp = sw.sw_align_device(*args, **kw3)
         err = _max_abs_err(kk, pp)
         if err:
             raise AssertionError(f"K3 != plain at the split engine's shape "
@@ -1537,16 +1632,20 @@ def split_path(n_pairs, host):
             shape=[refs.shape[0], refs.shape[1], reads.shape[1], nr],
             group=sw_cuda.load_kernels().sw_lane_group(reads.shape[1]),
             cols=sw_cuda.load_kernels().sw_lane_cols(reads.shape[1], 0),
-            max_abs_err=err, ms=_timed(lambda: align(*args, **kw), 5),
-            plain_ms=_timed(lambda: sw.sw_align_device(*args, **kw), 2),
+            max_abs_err=err, ms=_timed(lambda: align(*args, **kw3), 5),
+            plain_ms=_timed(lambda: sw.sw_align_device(*args, **kw3), 2),
             bound=bound_ms("sw_align", cells, sum(
                 x.numel() * x.element_size() for x in args),
                 sum(x.numel() * x.element_size() for x in kk)))
+        del seen, kk, pp, args
 
-        # map_batch returns the batch's result on the host, so its
-        # seconds are the batch's; the first batch is timed too (the
-        # kernels were built and loaded in phase 3)
-        rate = 2 * sum(len(b[1]) for b in batches) / sum(batch_s)
+        cmp = {}
+        if seeds == "device":
+            eager = DeviceMapperEngine(sdx, genome, index, device=dev,
+                                       graph=False, seed_index=eng._dindex,
+                                       **kw)
+            cmp = split_graph_vs_eager(eng, eager, batches, dev)
+            del eager
         say("split_path", seeds=seeds, genome=MID_LEN, pairs=n_pairs,
             batch=BATCH,
             byte_equal=["out.summary.txt", "r1.fastq.mfile",
@@ -1556,29 +1655,32 @@ def split_path(n_pairs, host):
             pileup_rows_tie_shifted=n_tie_rows,
             tie_rotated_insertion_clusters=rotated, insertions=len(ins_s),
             launches=launches, batches=len(batches), k3=k3_at,
-            traceback_s_per_batch=sum(tb_s) / len(batches),
-            traceback_calls=len(tb_s),
-            seed_s_per_batch=sum(seed_s) / len(batches),
-            batch_s=batch_s, reads_per_s=rate,
-            passes="the gate run's batches (map_batch seconds)",
-            n_fallback=n_fallback,
-            max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+            **rate, batch_s=batch_s,
+            passes="the gate run's batches (map_batch seconds), graphed",
+            graphs=graphs, **cmp, n_fallback=n_fallback,
+            max_memory_allocated=peak,
             seconds=dict(engine_build=round(t_build, 1),
                          device_run=round(t_run, 1)))
-        del eng, seen, kk, pp
+        del eng
         torch.cuda.empty_cache()
-    return k3_launches
+    return k3_launches, pools
 
 
-def human_counts(gs=HUMAN_LEN, edges=(2 ** 30, 2 ** 31)):
+def human_counts(gs=HUMAN_LEN, edges=(2 ** 30, 2 ** 31), split_pools=None):
     """Phase 7b: the split engine's pileup counters at hg38 scale, 2
     bytes a cell, on the card; pileup_scatter with sw_traceback_scatter's
     event layout (lanes of window rows from an int64 start) at starts on
     both sides of 2^30 and 2^31 and in the genome's last window (rows
-    past its end dropped), one cell pushed past 65,535; the touched rows
-    against np.add.at on uint16."""
+    past its end dropped), one cell pushed past 65,535, as a program
+    that adds the events and reads the touched rows back (the counters
+    captured by address, as the engine's traceback program holds them):
+    called three times (eager, captured and replayed, replayed), the
+    touched rows after each call against np.add.at on uint16; its
+    graph's pool bytes beside the counters' and the split engine's
+    programs' (phase 7, ``split_pools``)."""
     import numpy as np
     import torch
+    from pecaller_tpu_torch.mapper.program import StepProgram
     from pecaller_tpu_torch.ops import sw
     dev = torch.device("cuda", 0)
     torch.cuda.empty_cache()
@@ -1600,32 +1702,40 @@ def human_counts(gs=HUMAN_LEN, edges=(2 ** 30, 2 ** 31)):
     ins = (rng.random((B, T)) < 0.05) & (rows >= 0)
     ev_abs = np.where(rows >= 0, rows + starts[:, None], -1).reshape(-1)
     kind, ins = kind.reshape(-1), ins.reshape(-1)
-    # one cell near the wrap, then 9 more events on it
+    # one cell near the wrap, then 9 more events on it a call
     hot = e31 + 3
     counts[hot, 2] = 65530 - 65536
     ev_abs = np.concatenate([ev_abs, np.full(9, hot)])
     kind = np.concatenate([kind, np.full(9, 2, np.int8)])
     ins = np.concatenate([ins, np.zeros(9, bool)])
-    t0 = time.time()
-    sw.pileup_scatter(*(torch.from_numpy(x).to(dev) for x in (ev_abs, kind,
-                                                              ins)), counts)
-    torch.cuda.synchronize(dev)
-    t_scatter = time.time() - t0
 
     inb = (ev_abs >= 0) & (ev_abs < gs)
     touched = np.unique(np.concatenate([ev_abs[inb], [hot]]))
-    want = np.zeros((len(touched), 6), np.uint16)
-    want[np.searchsorted(touched, hot), 2] = 65530
+    base = np.zeros((len(touched), 6), np.int64)
+    base[np.searchsorted(touched, hot), 2] = 65530
+    add = np.zeros((len(touched), 6), np.int64)
     r = np.searchsorted(touched, ev_abs[inb])
     k = kind[inb].astype(np.int64)
-    np.add.at(want, (r[k < 5], k[k < 5]), np.uint16(1))
-    np.add.at(want, (r[ins[inb]], 5), np.uint16(1))
-    got = counts[torch.from_numpy(touched).to(dev)].cpu().numpy().view(
-        np.uint16)
-    if not np.array_equal(got, want):
-        bad = np.nonzero((got != want).any(axis=1))[0]
-        raise AssertionError(f"{len(bad)} touched rows differ from np.add.at,"
-                             f" first at {int(touched[bad[0]])}")
+    np.add.at(add, (r[k < 5], k[k < 5]), 1)
+    np.add.at(add, (r[ins[inb]], 5), 1)
+
+    def step(e, kd, i, rows_):
+        return sw.pileup_scatter(e, kd, i, counts)[rows_]
+    prog = StepProgram(step, dev)
+    secs = []
+    for call in (1, 2, 3):
+        t0 = time.time()
+        got = prog([(ev_abs, kind, ins, touched)])[0].cpu().numpy().view(
+            np.uint16)
+        secs.append(time.time() - t0)
+        want = ((base + call * add) & 0xFFFF).astype(np.uint16)
+        if not np.array_equal(got, want):
+            bad = np.nonzero((got != want).any(axis=1))[0]
+            raise AssertionError(
+                f"call {call}: {len(bad)} touched rows differ from "
+                f"np.add.at, first at {int(touched[bad[0]])}")
+    if prog.capture_s is None:
+        raise AssertionError("the counters' program captured no graph")
     # nothing else changed: the card's nonzero cells, counted in slices
     nz = sum(int(torch.count_nonzero(counts[i:i + (1 << 28)]))
              for i in range(0, gs, 1 << 28))
@@ -1636,9 +1746,13 @@ def human_counts(gs=HUMAN_LEN, edges=(2 ** 30, 2 ** 31)):
         events=int(inb.sum()), rows_touched=len(touched),
         past_2_31=int((touched >= e31).sum()),
         wrapped=int(got[np.searchsorted(touched, hot), 2]),
+        calls=["eager", "captured and replayed", "replayed"],
+        graph_pool_bytes=prog.pool_bytes,
+        split_engine_pool_bytes=split_pools,
         max_memory_allocated=torch.cuda.max_memory_allocated(dev),
-        seconds=dict(alloc=round(t_alloc, 3), scatter=round(t_scatter, 3)))
-    del counts
+        seconds=dict(alloc=round(t_alloc, 3),
+                     calls=[round(x, 4) for x in secs]))
+    del counts, prog
     torch.cuda.empty_cache()
 
 
@@ -2216,9 +2330,11 @@ def genome_mesh(n_pairs, host_dir):
     """Phase 10: the genome-sharded octile engine on phase 6's data, two
     genome shards on cuda:0, built directly (the runner has no route to
     it): the shard plan and octile builds timed, each shard's table
-    bytes; `map_files` with phase 6's command line against phase 6's
-    host oracle, all five artifacts byte-equal; reads/s (median of 3
-    after a warm pass).  Returns K1/K2 launches."""
+    bytes; `map_files` with phase 6's command line, each batch's step
+    (both shards and their collectives) one graph a shape key, against
+    phase 6's host oracle, all five artifacts byte-equal; then
+    graph_vs_eager against the engine on the same shards with
+    graph=False.  Returns K1/K2 launches of the gate run."""
     import numpy as np
     import torch
     from pecaller_tpu_torch import cli
@@ -2248,15 +2364,17 @@ def genome_mesh(n_pairs, host_dir):
     d = _run_dir("gshard", MID)
     cfg = cli.parse_pemapper(_argv(d, n_pairs, True, MID))
     torch.cuda.reset_peak_memory_stats(dev)
+
+    def engine(graph):
+        return OctileShardedEngine(
+            sdx, genome, index, make_mesh(1, 2, [dev, dev]), plan=plan,
+            shards=shards, bisulfite=cfg.bisulfite, min_align=cfg.min_align,
+            min_dist=cfg.min_dist, max_dist=cfg.max_dist, paired=cfg.paired,
+            nthreads=cfg.nthreads, graph=graph)
     t0 = time.time()
-    eng = OctileShardedEngine(
-        sdx, genome, index, make_mesh(1, 2, [dev, dev]), plan=plan,
-        shards=shards, bisulfite=cfg.bisulfite, min_align=cfg.min_align,
-        min_dist=cfg.min_dist, max_dist=cfg.max_dist, paired=cfg.paired,
-        nthreads=cfg.nthreads)
+    eng = engine(True)
     torch.cuda.synchronize(dev)
     t_upload = time.time() - t0
-    del shards
     sw_cuda.reset_launches()
     t0 = time.time()
     map_files(cfg, eng, sdx, genome)
@@ -2270,8 +2388,10 @@ def genome_mesh(n_pairs, host_dir):
     _gate("genome-sharded octile", _artifacts(d), want)
     n_fallback, n_tiefix, n_cap = (eng.n_fallback, eng.n_tiefix,
                                    eng.n_cap_fallback)
-    rates, how, per_batch = _rates(eng, _batches(n_pairs, MID), dev)
-    del eng
+    eager = engine(False)
+    del shards
+    cmp = graph_vs_eager(eng, eager, _batches(n_pairs, MID), dev)
+    del eng, eager
     torch.cuda.empty_cache()
     per_base = sum(table_bytes) / sdx.genome_size
     say("genome_mesh", shards=2, devices=[str(dev)] * 2,
@@ -2279,9 +2399,9 @@ def genome_mesh(n_pairs, host_dir):
         shard_bases_idx=[int(x) for x in plan.bases_idx],
         shard_cover_idx=[int(x) for x in plan.cover_idx],
         table_bytes=table_bytes, byte_equal=sorted(want), launches=launches,
-        reads_per_s=rates[len(rates) // 2], reads_per_s_passes=rates,
-        spread=_spread(rates), passes=how, host_s_per_batch=per_batch,
-        n_fallback=n_fallback, n_tiefix=n_tiefix, n_cap_fallback=n_cap,
+        reads_per_s=cmp["graph"]["reads_per_s"], graph=cmp.pop("graph"),
+        eager=cmp.pop("eager"), **cmp, n_fallback=n_fallback,
+        n_tiefix=n_tiefix, n_cap_fallback=n_cap,
         max_memory_allocated=peak,
         seconds=dict(plan=round(t_plan, 4), octile_build=round(t_build, 1),
                      engine_build=round(t_upload, 1),
@@ -2712,11 +2832,14 @@ CALL_STEP_SITES = 1 << 16
 
 def sharded_steps():
     """Phase 13: sharded_map_step on two shards of cuda:0 at 8,192 lanes
-    of the v1 shape (N 160, M 112, raw bytes), every output bitwise
-    against the one-device plain path (sw_align_device, the traceback
-    and pileup_scatter on cuda:0) over phase 4's genome size; then
-    sharded_call_step against site_likelihoods on one device.  Returns
-    K3's launches."""
+    of the v1 shape (N 160, M 112, raw bytes), graphed (the whole step
+    one program: called on lanes a, b, a, so the second call captures
+    and replays and the third replays), every output bitwise against
+    the one-device plain path (sw_align_device, the traceback and
+    pileup_scatter on cuda:0) over phase 4's genome size on lanes a and
+    against the step with graph=False on lanes b, bisulfite off and on;
+    then sharded_call_step against site_likelihoods on one device.
+    Returns K3's launches of the graphed step."""
     import numpy as np
     import torch
     from pecaller_tpu_torch.caller.device_model import site_likelihoods
@@ -2727,38 +2850,57 @@ def sharded_steps():
     t_phase = time.time()
     mesh = make_mesh(2, 1, [dev, dev])
     gs = GENOME_LEN
+    gs_pad = -(-gs // mesh.size) * mesh.size
     out = {}
     launches = 0
+
+    def lanes(seed):
+        return [torch.from_numpy(x).to(dev) for x in mk_lanes(
+            np.random.default_rng(seed), MAP_STEP_LANES, 160, 112, 90, 101,
+            raw=True)]
+
+    def check(name, got, want, bis):
+        for what, a, b in zip(("score", "bk", "bi", "pileup"), got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"sharded_map_step ({name}) {what} "
+                                     f"differs (bisulfite {bis})")
     for bis in (False, True):
-        lanes = [torch.from_numpy(x).to(dev) for x in mk_lanes(
-            np.random.default_rng(1300 + bis), MAP_STEP_LANES, 160, 112,
-            90, 101, raw=True)]
-        step = sharded_map_step(mesh, gs, bisulfite=bis)
-        k0 = sw_cuda.LAUNCHES["sw_align"]
-        t0 = time.time()
-        score, bk, bi, blocks = step(*lanes)
-        torch.cuda.synchronize(dev)
-        t_step = time.time() - t0
-        launches += sw_cuda.LAUNCHES["sw_align"] - k0
-        ps, pk, pi = sw.sw_align_device(*lanes, bisulfite=bis)
+        a, b = lanes(1300 + bis), lanes(1310 + bis)
+        ps, pk, pi = sw.sw_align_device(*a, bisulfite=bis)
         ev_pos, ev_kind, ins_j, _ = sw.sw_traceback_device(
-            *lanes, pk, pi, bisulfite=bis)
-        gs_pad = -(-gs // mesh.size) * mesh.size
+            *a, pk, pi, bisulfite=bis)
         plain = sw.pileup_scatter(
             ev_pos.reshape(-1).long(), ev_kind.reshape(-1),
             (ins_j >= 0).reshape(-1),
             torch.zeros((gs_pad, 6), dtype=torch.int16, device=dev))
-        for name, a, b in (("score", score, ps), ("bk", bk, pk),
-                           ("bi", bi, pi),
-                           ("pileup", torch.cat(blocks), plain)):
-            if not torch.equal(a, b):
-                raise AssertionError(f"sharded_map_step {name} differs "
-                                     f"from the plain path (bisulfite "
-                                     f"{bis})")
         if not plain.any():
             raise AssertionError("sharded_map_step added no event")
+        eager = sharded_map_step(mesh, gs, bisulfite=bis, graph=False)
+        t0 = time.time()
+        sc, kb, ib, bl = eager(*b)
+        torch.cuda.synchronize(dev)
+        t_eager = time.time() - t0
+        want_b = (sc, kb, ib, torch.cat(bl))
+        step = sharded_map_step(mesh, gs, bisulfite=bis)
+        k0 = sw_cuda.LAUNCHES["sw_align"]
+        secs = []
+        for name, x, want in (("eager call", a, (ps, pk, pi, plain)),
+                              ("captured", b, want_b),
+                              ("replayed", a, (ps, pk, pi, plain))):
+            t0 = time.time()
+            score, bk, bi, blocks = step(*x)
+            torch.cuda.synchronize(dev)
+            secs.append(time.time() - t0)
+            check(name, (score, bk, bi, torch.cat(blocks)), want, bis)
+        launches += sw_cuda.LAUNCHES["sw_align"] - k0
+        prog, = step.programs.values()
         out["bisulfite" if bis else "plain"] = dict(
-            step_s=t_step, events=int(plain.long().sum()))
+            step_s=dict(zip(("eager_call", "capture_and_replay", "replay"),
+                            secs)),
+            graph_false_step_s=t_eager, capture_s=prog.capture_s,
+            instantiate_s=prog.instantiate_s, pool_bytes=prog.pool_bytes,
+            events=int(plain.long().sum()))
+        del step, eager, prog
     rng = np.random.default_rng(13)
     reads = torch.from_numpy(rng.integers(
         0, 400, (CALL_STEP_SITES, 3, 6)).astype(np.int16)).to(dev)
@@ -2847,9 +2989,10 @@ def main():
         mid, host = mid_path(MID_PAIRS)
         for k in launches:
             launches[k] += mid[k]
-        launches["sw_align"] += split_path(MID_PAIRS, host)
+        k3_split, split_pools = split_path(MID_PAIRS, host)
+        launches["sw_align"] += k3_split
         del host
-        human_counts()
+        human_counts(split_pools=split_pools)
         cb, call_want = caller_path(args.pairs)
         screen_check()
         beam_path(cb, call_want)

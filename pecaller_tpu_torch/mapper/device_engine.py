@@ -15,6 +15,13 @@ genome), added to in place.  Window starts are int64 on the device, so
 positions past 2^31 stay exact.  ``device_seeds`` moves the seed step
 onto the device too (``device_seeds.build_seed_chain_fn``); past 2^30
 bases it is off, as the device seed tables hold int32 positions.
+
+A batch end is three device calls with host work between them: the seed
+step (device seeds), K3's scores and the traceback.  The seed step and
+the traceback (with its pileup add and insertion records) each run as
+one ``StepProgram`` a shape key, the counterparts of the reference's
+``@jax.jit seed_chain_impl`` and ``@jax.jit sw_traceback_scatter``; K3
+is one launch.
 """
 
 from __future__ import annotations
@@ -24,22 +31,36 @@ import torch
 
 from ..device import resolve_device
 from ..ops import sw, sw_cuda
-from .device_map2 import INS_CAP, to_device
+from .device_map2 import INS_CAP, fetch_async, fetched, to_device
 from .engine import MAX_HITS, MapperEngine
 from .host_prep import _bucket_b, _pad_to
+from .program import StepProgram
 
 
 class DeviceMapperEngine(MapperEngine):
     """``device`` defaults to the first CUDA device; a CPU device, named
-    by the caller, runs the plain version of K3."""
+    by the caller, runs the plain version of K3.
+
+    ``graph``: the seed step of each (batch, segment) bucket and the
+    traceback of each (lanes, N, M) bucket run as ``StepProgram``s, on a
+    card CUDA graphs captured at the key's second call that share one
+    graph pool (they replay one at a time on one stream, and each
+    output is copied to the host before the next replay);
+    ``graph=False`` runs them eagerly.  ``seed_index``: a
+    ``DeviceSeedIndex`` of this index on ``device`` to use instead of
+    building one (engines on one device may share it)."""
 
     def __init__(self, *args, device_seeds: bool = True, device="cuda",
-                 **kwargs):
+                 graph: bool = True, seed_index=None, **kwargs):
         super().__init__(*args, **kwargs)
         self.device = resolve_device(device)
         self.dev_counts = torch.zeros((self.sdx.genome_size, 6),
                                       dtype=torch.int16, device=self.device)
         self.n_fallback = 0
+        self._graph = graph
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if graph and self.device.type == "cuda" else None)
+        self._tb_programs = {}
         self._seed_fns = None
         self._pending_maps = None
         if self.sdx.genome_size >= 2 ** 30:
@@ -48,9 +69,18 @@ class DeviceMapperEngine(MapperEngine):
             device_seeds = False
         if device_seeds:
             from .device_seeds import DeviceSeedIndex, HIT_CAP
-            self._dindex = DeviceSeedIndex(self.index, self.device)
+            self._dindex = (seed_index if seed_index is not None
+                            else DeviceSeedIndex(self.index, self.device))
             self._seed_fns = {}
             self._hit_cap = HIT_CAP
+
+    @property
+    def programs(self) -> list:
+        """Every StepProgram the engine has built: the seed steps', then
+        the tracebacks'."""
+        return ([p for fn in (self._seed_fns or {}).values()
+                 for p in fn.programs.values()]
+                + list(self._tb_programs.values()))
 
     # -- seeds on the device -----------------------------------------------
     def _seed_bucket_fn(self, s_needed: int):
@@ -60,7 +90,8 @@ class DeviceMapperEngine(MapperEngine):
                 break
         if b not in self._seed_fns:
             self._seed_fns[b] = build_seed_chain_fn(
-                self._dindex, bisulfite=self.bisulfite, s_max=b)
+                self._dindex, bisulfite=self.bisulfite, s_max=b,
+                graph=self._graph, pool=self._pool)
         return self._seed_fns[b], b
 
     def _initial_map_dispatch(self, seqs, lens):
@@ -145,10 +176,10 @@ class DeviceMapperEngine(MapperEngine):
         buckets; the port keeps them so that both see the same lanes)."""
         return _pad_to(max(n, 8), 64), _pad_to(max(m, 8), 64)
 
-    def _lanes(self, refs, blens, reads, rlens, N, M, *extra):
+    @staticmethod
+    def _lanes(refs, blens, reads, rlens, N, M, *extra):
         """Host arrays padded to Hp = _bucket_b(H) lanes of widths (N, M)
-        (reads padded with 1, which no reference pad byte matches), as
-        tensors on the device."""
+        (reads padded with 1, which no reference pad byte matches)."""
         H = len(blens)
         Hp = _bucket_b(H)
         refs_p = np.zeros((Hp, N), dtype=np.uint8)
@@ -161,7 +192,7 @@ class DeviceMapperEngine(MapperEngine):
             p = np.full(Hp, fill, dt)
             p[:H] = a
             cols.append(p)
-        return [to_device(x, self.device) for x in cols]
+        return cols
 
     def _sw_scores(self, refs, blens, reads, rlens):
         H = refs.shape[0]
@@ -169,8 +200,9 @@ class DeviceMapperEngine(MapperEngine):
             return (np.zeros(0), np.zeros(0, np.int32),
                     np.zeros(0, np.int32))
         N, M = self._bucket(refs.shape[1], int(rlens.max()))
-        refs_d, reads_d, blens_d, rlens_d = self._lanes(
-            refs, blens, reads, rlens, N, M)
+        refs_d, reads_d, blens_d, rlens_d = (
+            to_device(x, self.device)
+            for x in self._lanes(refs, blens, reads, rlens, N, M))
         packed = torch.stack(sw_cuda.sw_align(
             refs_d, blens_d, reads_d, rlens_d, bisulfite=self.bisulfite,
             n_rows=N)).cpu().numpy()
@@ -201,14 +233,10 @@ class DeviceMapperEngine(MapperEngine):
 
         N, M = self._bucket(width, int(rlens.max()))
         # padded lanes walk zero steps (bt_i 0)
-        refs_d, reads_d, blens_d, rlens_d, k_d, i_d, pos0_d = self._lanes(
-            refs, blens, oriented, rlens, N, M, (out_k, 0, np.int32),
-            (out_i, 0, np.int32), (starts, 0, np.int64))
-        _, rec = sw.sw_traceback_scatter(
-            refs_d, blens_d, reads_d, rlens_d, k_d, i_d, pos0_d,
-            self.dev_counts, bisulfite=self.bisulfite, n_rows=N,
-            ins_cap=INS_CAP)
-        rec = rec.cpu().numpy()
+        lanes = self._lanes(refs, blens, oriented, rlens, N, M,
+                            (out_k, 0, np.int32), (out_i, 0, np.int32),
+                            (starts, 0, np.int64))
+        rec = self._traceback(lanes)
         n_ins = int(rec[-1, 0])
         if n_ins > rec.shape[0] - 1:
             raise RuntimeError("insertion record cap exceeded; raise "
@@ -222,6 +250,25 @@ class DeviceMapperEngine(MapperEngine):
                 (self._order_counter + rn, end), int(starts[b] + evp),
                 oriented[b, js:js + ln].tobytes().decode()))
         return m
+
+    def _traceback(self, lanes) -> np.ndarray:
+        """The traceback of one end's padded winner lanes (refs, reads,
+        blens, rlens, bt_k, bt_i, window starts: host arrays), its events
+        added to ``dev_counts`` in place, as the program of its (Hp, N,
+        M) key; returns the insertion records, on the host."""
+        key = (len(lanes[2]), lanes[0].shape[1], lanes[1].shape[1])
+        if key not in self._tb_programs:
+            counts, n_rows = self.dev_counts, key[1]
+
+            def step(refs, reads, blens, rlens, bt_k, bt_i, pos0):
+                return sw.sw_traceback_scatter(
+                    refs, blens, reads, rlens, bt_k, bt_i, pos0, counts,
+                    bisulfite=self.bisulfite, n_rows=n_rows,
+                    ins_cap=INS_CAP)[1]
+            self._tb_programs[key] = StepProgram(
+                step, self.device, graph=self._graph, pool=self._pool)
+        return fetched(fetch_async(self._tb_programs[key]([lanes])[0],
+                                   self.device))
 
     def final_pileup(self) -> np.ndarray:
         """Host slabs plus the device counters, mod 2^16."""

@@ -1497,13 +1497,18 @@ class FusedMapperEngine2(MapperEngine):
             h["ins"] = ins
             self._stage(h)
         else:
-            step = self._step_for(*key)
+            self._step_for(*key)
             t0 = time.perf_counter()
-            outs = step(self._shard_inputs(ins, B))
+            outs = self._mesh_outputs(h, ins)
             self.mesh_timing["dispatch_s"] += time.perf_counter() - t0
             self.mesh_timing["batches"] += 1
             h["shards"] = [fetch_async(o, o.device) for o in outs]
         return h
+
+    def _mesh_outputs(self, h, ins):
+        """Run a mesh batch's step: the output blocks to fetch, each on
+        its device (here one a reads shard)."""
+        return self._step_for(*h["key"])(self._shard_inputs(ins, h["B"]))
 
     def _stage(self, h):
         """Stage a batch; ``group_k`` staged batches of one key run as

@@ -30,8 +30,8 @@ import torch
 
 from ..formats.index_files import SeedIndex
 from ..ops.encode import BASE_BITS, IDEPTH, _RC
-from .device_map2 import (MASK32, _as_i32, _u32, fetch_async, fetched,
-                          to_device)
+from .device_map2 import MASK32, _as_i32, _u32, fetch_async, fetched
+from .program import StepProgram
 
 S_MAX = 20              # max segments (reads <= 299bp)
 KEY_CAP = 8             # positions gathered per neighborhood key
@@ -335,29 +335,47 @@ def seed_chain_core(ptab, ikeys, istarts, hi_table, positions,
 
 
 def build_seed_chain_fn(dindex: DeviceSeedIndex, bisulfite: bool = False,
-                        s_max: int = 8):
+                        s_max: int = 8, graph: bool = True, pool=None):
     """The seed step of one batch end on ``dindex``'s device, for the
     split engine.  ``s_max``: static segment-count bucket (8 covers
     reads <= 127 bp).  Returns seed_chain(seqs, lens, offsets, n_segs,
     min_match0, skip) -> (hits, hits_off, orient, tot, fallback) numpy
-    arrays, with ``.dispatch`` (host prep, upload, enqueue and the start
+    arrays, with ``.dispatch`` (host prep, then the step and the start
     of one copy back) and ``.fetch`` (wait for that copy and split it)
-    as its two halves."""
+    as its two halves.
+
+    The step of each batch size runs as one ``StepProgram`` (the
+    counterpart of the reference's ``@jax.jit seed_chain_impl``): on a
+    card a CUDA graph captured at the size's second call (``graph``;
+    ``pool``: the graph pool it shares).  A replay overwrites the last
+    call's output, so ``dispatch`` starts its copy to the host at once
+    and a caller may dispatch several ends before the first fetch.
+    ``seed_chain.programs`` maps each batch size to its program."""
     n_steps = max(1, int(np.ceil(np.log2(max(dindex.max_subrange, 2)))) + 1)
+    programs = {}
+
+    def program(B: int) -> StepProgram:
+        if B not in programs:
+            k_cap = dindex.compact_cap(B * 2 * s_max * 49)
+
+            def step(*t):
+                hits, hits_off, orient, tot, fallback = seed_chain_core(
+                    dindex.ptab, dindex.keys, dindex.starts,
+                    dindex.hi_table, dindex.positions, *t, s_max=s_max,
+                    n_steps=n_steps, n_keys=dindex.n_keys, k_cap=k_cap)
+                # one int32 matrix: a single copy to the host per call
+                return torch.cat([hits, hits_off, orient.to(I32),
+                                  tot[:, None], fallback.to(I32)[:, None]],
+                                 dim=1)
+            programs[B] = StepProgram(step, dindex.device, graph=graph,
+                                      pool=pool)
+        return programs[B]
 
     def dispatch(seqs, lens, offsets, n_segs, min_match0, skip):
         _, bits_f, bits_r = host_bits_rev(seqs, lens, bisulfite=bisulfite)
-        t = [to_device(x, dindex.device) for x in (
-            bits_f, bits_r, offsets, n_segs, min_match0, skip)]
-        hits, hits_off, orient, tot, fallback = seed_chain_core(
-            dindex.ptab, dindex.keys, dindex.starts, dindex.hi_table,
-            dindex.positions, *t, s_max=s_max, n_steps=n_steps,
-            n_keys=dindex.n_keys,
-            k_cap=dindex.compact_cap(bits_f.shape[0] * 2 * s_max * 49))
-        # one int32 matrix: a single copy to the host per call
-        packed = torch.cat([hits, hits_off, orient.to(I32), tot[:, None],
-                            fallback.to(I32)[:, None]], dim=1)
-        return fetch_async(packed, dindex.device)
+        out = program(bits_f.shape[0])([(bits_f, bits_r, offsets, n_segs,
+                                         min_match0, skip)])
+        return fetch_async(out[0], dindex.device)
 
     def fetch(pending):
         packed = fetched(pending)
@@ -372,4 +390,5 @@ def build_seed_chain_fn(dindex: DeviceSeedIndex, bisulfite: bool = False,
 
     seed_chain.dispatch = dispatch
     seed_chain.fetch = fetch
+    seed_chain.programs = programs
     return seed_chain

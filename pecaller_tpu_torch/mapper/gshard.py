@@ -18,9 +18,13 @@ The shards' steps run in lockstep in this process (``parallel.mesh``:
 one generator a shard, reduced in shard order).  Reads are replicated
 over the genome axis (a batch is ~4 MB; the index is the heavy
 operand).  The public engine API (map_batch_async / resolve /
-final_pileup) is that of FusedMapperEngine2.  The shards' steps run
-eagerly, not as CUDA graphs (``mapper/program.py``): a step yields at
-each collective, so it would take one graph a segment between yields.
+final_pileup) is that of FusedMapperEngine2.  A batch's step, every
+shard's and the collectives between them, is one ``StepProgram`` a
+shape key (``mapper/program.py``; the counterpart of the reference's
+``jax.jit(shard_map(local))``): where every shard sits on one device,
+the lockstep's reductions are device ops on it, so one CUDA graph holds
+the whole step.  One graph cannot hold reductions across devices: a
+mesh over several devices runs eagerly (``graph=False``) or raises.
 
 One divergence from the reference: where the shards' merged walk-tie
 records would pass ``tie_cap`` the reference raises; here the step
@@ -38,30 +42,33 @@ from ..formats.sdx import SdxInfo
 from ..index.shard import ShardPlan, build_octile_shards, plan_shards
 from ..parallel.mesh import ShardComm, lockstep
 from .device_map2 import (INS_CAP, SCATTER_PAD, TIE_CAP, DeviceState,
-                          FusedMapperEngine2, FusedStep2, OctileDeviceIndex,
-                          to_device)
+                          FusedMapperEngine2, FusedStep2, OctileDeviceIndex)
 from .engine import MapperEngine
 from .host_prep import pack_genome
+from .program import StepProgram
 
 
 def sharded_genome_step(states: list, **step_kw):
     """The fused step over the genome shards of ``states`` (one
-    DeviceState a shard, its ``gctx`` set).  Returns ``step(ins)``: the
-    batch arrays of the single step, replicated to every shard's device,
-    run in lockstep; returns the shards' output blocks.  ``step.steps``
-    lists the shards' FusedStep2."""
+    DeviceState a shard, its ``gctx`` set).  Returns ``step(*ins)``: the
+    batch tensors of the single step on the first shard's device, copied
+    once to each other device the shards use (reads are replicated over
+    the genome axis), the shards run in lockstep; returns their output
+    blocks stacked, (G, rows, 6) on the first shard's device.
+    ``step.steps`` lists the shards' FusedStep2."""
     G = len(states)
     steps = [FusedStep2(st.dnbr, comm=ShardComm(g, G), **step_kw)
              for g, st in enumerate(states)]
 
-    def step(ins):
-        ups, gens = {}, []
+    def step(*ins):
+        ups, gens = {ins[0].device: ins}, []
         for fn, st in zip(steps, states):
             d = st.dev_counts.device
             if d not in ups:
-                ups[d] = [to_device(x, d) for x in ins]
+                ups[d] = [x.to(d) for x in ins]
             gens.append(fn.run(st, *ups[d]))
-        return lockstep(gens)
+        outs = lockstep(gens)
+        return torch.stack([o.to(outs[0].device) for o in outs])
     step.steps = steps
     return step
 
@@ -78,22 +85,38 @@ class OctileShardedEngine(FusedMapperEngine2):
     mesh device (a device may hold several).  ``plan`` and ``shards``
     default to ``plan_shards(sdx, G)`` and ``build_octile_shards``;
     ``t1`` and ``rcap`` are the octile probe's parameters
-    (``OctileDeviceIndex``)."""
+    (``OctileDeviceIndex``).
+
+    Each shape key's step, all shards and their collectives, runs as one
+    ``StepProgram`` with one fetch of the stacked blocks: on a card a
+    CUDA graph captured at the key's second batch (``graph``), as
+    FusedMapperEngine2's.  ``graph=False`` runs the shards' steps
+    eagerly.  A mesh over more than one device takes ``graph=False``:
+    with ``graph=True`` it raises ValueError.  ``mesh_timing`` sums the
+    host seconds of the input copies and the replay (or the eager
+    step's enqueue: dispatch) and of waiting for the one copy back
+    (fetch).  No batches are grouped."""
 
     def __init__(self, sdx: SdxInfo, genome: np.ndarray, index: SeedIndex,
                  mesh, plan: ShardPlan | None = None, shards=None,
                  t1: int = 4, rcap: int = 12, ins_cap: int = INS_CAP,
-                 tie_cap: int = TIE_CAP, **kwargs):
-        MapperEngine.__init__(self, sdx, genome, index, **kwargs)
+                 tie_cap: int = TIE_CAP, graph: bool = True, **kwargs):
         if mesh.shape["reads"] != 1:
             raise ValueError("the genome-sharded engine takes a mesh of one "
                              "reads row")
+        if graph and len(set(mesh.flat)) > 1:
+            raise ValueError(
+                f"a genome mesh over {len(set(mesh.flat))} devices cannot "
+                "run as one CUDA graph (its collectives reduce across the "
+                "devices): pass graph=False to run it eagerly")
+        MapperEngine.__init__(self, sdx, genome, index, **kwargs)
         self._mesh = mesh
         self._n_sh = 1                  # reads axis unsharded here
+        self._graph = graph
         self.device = mesh.flat[0]
         self.ins_cap, self.tie_cap = ins_cap, tie_cap
         self._steps = {}
-        self._programs = {}             # the shards' steps stay eager
+        self._programs = {}
         self.n_fallback = 0
         self.n_tiefix = 0
         self.mesh_timing = {"dispatch_s": 0.0, "fetch_s": 0.0, "batches": 0}
@@ -145,15 +168,24 @@ class OctileShardedEngine(FusedMapperEngine2):
                 self.states, **self._step_kw(B, M, N, s_max, mr))
         return self._steps[key]
 
-    def _shard_inputs(self, ins, B):
-        return ins                      # reads replicated over the shards
+    def _program_for(self, K, key):
+        if (K, key) not in self._programs:
+            self._programs[K, key] = StepProgram(
+                self._step_for(*key), self.device, group=K,
+                graph=self._graph)
+        return self._programs[K, key]
+
+    def _mesh_outputs(self, h, ins):
+        """The batch's step over every shard as one program: its stacked
+        blocks, fetched in one copy."""
+        return [self._program_for(1, h["key"])([ins])[0]]
 
     def _blocks(self, h):
         """Packed rows are replicated (m_u was summed over the shards);
         the insertion and walk-tie records are each shard's, with global
         positions: concatenate them in shard order."""
         B = h["B"]
-        outs = self._fetch_shards(h)
+        outs, = self._fetch_shards(h)
         recs, trecs = zip(*(self._records(out, B) for out in outs))
         return outs[0][:B], np.concatenate(recs), np.concatenate(trecs)
 

@@ -11,6 +11,12 @@ captured once a shape key and replayed each batch: the step's ~2,200
 Python enqueue.  The step's persistent tensors (the index, the genome,
 the pileup counters ``dev_counts`` and the probe's ``n_cap_fb``) are
 captured by address: they are updated in place and never reassigned.
+
+Every mapping step of the port runs as one: the v2, v2.5 and v1 steps,
+each reads-mesh shard's, the genome mesh's (all shards and their
+collectives, ``mapper/gshard.py``), the split engine's seed step and
+traceback (``mapper/device_engine.py``) and ``sharded_map_step``
+(``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ class StepProgram:
     slots, ``group`` batches a call.
 
     ``program(batches)`` takes ``group`` batches, each a sequence of the
-    step's inputs as host arrays, copies them into the program's slots
+    step's inputs (host arrays or tensors), copies them into the slots
     (one set a batch) and returns the ``(group, ...)`` stack of the
     step's outputs.  On a card the first call runs the steps eagerly (the
     warm-up, whose result is that call's result), the second captures
@@ -43,17 +49,25 @@ class StepProgram:
     steps eagerly at every call and returns a fresh tensor.  A capture
     that fails raises; nothing falls back to the eager steps.
 
+    ``pool`` (``torch.cuda.graph_pool_handle()``): a memory pool that the
+    graphs of several programs share instead of one pool each.  One
+    program's replay may then overwrite another's output: share a pool
+    only between programs that replay one at a time on one stream, each
+    output copied out (``fetch_async``) before the next replay.
+
     The kernel wrappers count their launches while the graph is
     captured, though a capture launches nothing: the program takes those
     counts back out and adds them on every replay (``launches``)."""
 
-    def __init__(self, step, device, group: int = 1, graph: bool = True):
+    def __init__(self, step, device, group: int = 1, graph: bool = True,
+                 pool=None):
         if group < 1:
             raise ValueError(f"group must be at least 1, got {group}")
         self.step = step
         self.device = torch.device(device)
         self.group = group
         self.graph = graph
+        self.pool = pool
         self.slots = None
         self.out = None
         self.calls = 0
@@ -87,7 +101,8 @@ class StepProgram:
             return self.out
 
     def _fill(self, batches) -> None:
-        hosts = [[torch.from_numpy(np.ascontiguousarray(x)) for x in b]
+        hosts = [[x if isinstance(x, torch.Tensor)
+                  else torch.from_numpy(np.ascontiguousarray(x)) for x in b]
                  for b in batches]
         if self.slots is None:
             self.slots = [[torch.empty(h.shape, dtype=h.dtype,
@@ -103,7 +118,7 @@ class StepProgram:
                         f"input {tuple(h.shape)} {h.dtype} does not fit "
                         f"the program's slot {tuple(slot.shape)} "
                         f"{slot.dtype}")
-                if self.device.type == "cuda":
+                if self.device.type == "cuda" and h.device.type == "cpu":
                     slot.copy_(h.pin_memory(), non_blocking=True)
                 else:
                     slot.copy_(h)
@@ -116,7 +131,7 @@ class StepProgram:
         before = dict(sw_cuda.LAUNCHES)
         t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph,
+            with torch.cuda.graph(graph, pool=self.pool,
                                   stream=torch.cuda.Stream(self.device)):
                 reserved = torch.cuda.memory_reserved(self.device)
                 out = self._run()

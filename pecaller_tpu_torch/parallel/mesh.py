@@ -69,7 +69,8 @@ def make_mesh(n_reads_shards: int, n_genome_shards: int = 1,
                 n_genome_shards)
 
 
-def sharded_map_step(mesh: Mesh, genome_size: int, bisulfite: bool = False):
+def sharded_map_step(mesh: Mesh, genome_size: int, bisulfite: bool = False,
+                     graph: bool = True):
     """The mapping compute step over every shard of ``mesh``.
 
     Step signature: (refs (B, N) uint8, blens (B,) int32, reads (B, M)
@@ -83,14 +84,28 @@ def sharded_map_step(mesh: Mesh, genome_size: int, bisulfite: bool = False):
     uint16 bits (``pileup_scatter``).  The partials are summed in shard
     order on the first shard's device (wrapping mod 2^16) and split into
     row blocks, the counterpart of ``psum_scatter``.  B not divisible by
-    the number of shards raises ValueError."""
+    the number of shards raises ValueError.
+
+    With ``graph`` the whole step of each input shape, every shard and
+    the shard-order sum, runs as one ``StepProgram`` (the counterpart of
+    the reference's ``jax.jit(shard_map(local_step))``; on a card a CUDA
+    graph captured at the shape's second call): the outputs are then
+    views of the program's output, which the next call overwrites, and
+    ``step.programs`` maps each input shape to its program.  One graph
+    cannot hold a mesh over several devices: there ``graph=True`` raises
+    ValueError and ``graph=False`` runs the shards eagerly."""
+    from ..mapper.program import StepProgram
     from ..ops import sw as psw
     from ..ops import sw_cuda
     devs = mesh.flat
     n = len(devs)
     gs_pad = -(-genome_size // n) * n
+    if graph and len(set(devs)) > 1:
+        raise ValueError(
+            f"a mesh over {len(set(devs))} devices cannot run as one CUDA "
+            "graph: pass graph=False to run its shards eagerly")
 
-    def step(refs, blens, reads, rlens):
+    def eager(refs, blens, reads, rlens):
         ins = [torch.as_tensor(x) for x in (refs, blens, reads, rlens)]
         B = ins[0].shape[0]
         if B % n:
@@ -116,6 +131,32 @@ def sharded_map_step(mesh: Mesh, genome_size: int, bisulfite: bool = False):
         score, bk, bi = (torch.cat([o[k].to(devs[0]) for o in outs])
                          for k in range(3))
         return score, bk, bi, blocks
+    if not graph:
+        return eager
+
+    def packed(*ins):
+        """The step's outputs as one int32 vector: score, bk, bi, then
+        the summed partial's int16 bits."""
+        score, bk, bi, blocks = eager(*ins)
+        return torch.cat([score, bk, bi,
+                          torch.cat(blocks).reshape(-1).view(torch.int32)])
+
+    programs = {}
+
+    def step(refs, blens, reads, rlens):
+        ins = [x if isinstance(x, torch.Tensor) else np.asarray(x)
+               for x in (refs, blens, reads, rlens)]
+        B = ins[0].shape[0]
+        if B % n:
+            raise ValueError(f"B={B} must divide by n_shards={n}")
+        key = tuple((tuple(x.shape), str(x.dtype)) for x in ins)
+        if key not in programs:
+            programs[key] = StepProgram(packed, devs[0])
+        out = programs[key]([ins])[0]
+        score, bk, bi = out[:3 * B].view(3, B)
+        pile = out[3 * B:].view(torch.int16).view(n, gs_pad // n, 6)
+        return score, bk, bi, list(pile)
+    step.programs = programs
     return step
 
 

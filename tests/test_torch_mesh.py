@@ -276,6 +276,37 @@ def test_sharded_map_step_matches_jax(bisulfite):
         tmesh.sharded_map_step(mesh, gs)(*(x[:60] for x in batch))
 
 
+def _map_outputs(out):
+    score, bk, bi, blocks = out
+    return [x.cpu().numpy().copy() for x in (score, bk, bi,
+                                             torch.cat(blocks))]
+
+
+@pytest.mark.parametrize("bisulfite", [False, True])
+def test_sharded_map_step_program_matches_eager(bisulfite):
+    """graph=True (the whole step of an input shape as one program; on
+    the CPU its slots and one static output) against graph=False on a
+    (4, 2) mesh of one device, three calls on three batches: bitwise.
+    A mesh over two devices raises with graph=True and names
+    graph=False."""
+    gs = 2048
+    mesh = tmesh.make_mesh(4, 2, [CPU] * 8)
+    prog = tmesh.sharded_map_step(mesh, gs, bisulfite=bisulfite)
+    eager = tmesh.sharded_map_step(mesh, gs, bisulfite=bisulfite,
+                                   graph=False)
+    for seed in (3, 4, 5):
+        batch = __graft_entry__._example_batch(B=64, N=64, M=48, seed=seed)
+        got, want = _map_outputs(prog(*batch)), _map_outputs(eager(*batch))
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and np.array_equal(g, w)
+        assert want[3].any()
+    assert [p.calls for p in prog.programs.values()] == [3]
+    two = tmesh.Mesh([CPU, torch.device("meta")], 2, 1)
+    with pytest.raises(ValueError, match="graph=False"):
+        tmesh.sharded_map_step(two, gs)
+    tmesh.sharded_map_step(two, gs, graph=False)
+
+
 def _like_inputs(S=256, indiv=3, seed=21):
     """Counts from shallow to past the screen's depth gate, random refs."""
     rng = np.random.default_rng(seed)
@@ -375,3 +406,31 @@ def test_sharded_map_step_on_the_card(cuda_device, bisulfite):
     for a, b in ((score, ps), (bk, pk), (bi, pi),
                  (torch.cat(blocks), plain)):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bisulfite", [False, True])
+def test_sharded_map_step_graph_on_the_card(cuda_device, bisulfite):
+    """Two shards on cuda:0, the step graphed (first call eager, second
+    captured and replayed, third replayed) against graph=False on three
+    batches: bitwise, and the same K3 launch counts."""
+    from pecaller_tpu_torch.ops import sw_cuda
+    mesh = tmesh.make_mesh(2, 1, [cuda_device] * 2)
+    steps = {g: tmesh.sharded_map_step(mesh, 4096, bisulfite=bisulfite,
+                                       graph=g) for g in (True, False)}
+    got, counts = {}, {}
+    for g, step in steps.items():
+        k0 = sw_cuda.LAUNCHES["sw_align"]
+        got[g] = [_map_outputs(step(*(torch.from_numpy(x).to(cuda_device)
+                                      for x in chip_smoke.mk_lanes(
+                                          np.random.default_rng(60 + i),
+                                          2048, 160, 112, 90, 101,
+                                          raw=True))))
+                  for i in range(3)]
+        counts[g] = sw_cuda.LAUNCHES["sw_align"] - k0
+    for a, b in zip(got[True], got[False]):
+        for x, y in zip(a, b):
+            assert np.array_equal(x, y)
+    assert counts[True] == counts[False] == 6
+    prog, = steps[True].programs.values()
+    assert prog.calls == 3 and prog.capture_s is not None

@@ -135,7 +135,8 @@ def test_octile_step_matches_jax(data, n_shards):
     fn = jeng._fn_for(B, M, N, s_max, mr)
     dc_j, out_j = fn(jnp.asarray(counts), *jeng._dnbr.args, jeng._gcode,
                      jeng._gmask, jeng._ist_dev, jeng._st_pad_dev, *ins)
-    outs = peng._step_for(B, M, N, s_max, mr)(ins)
+    outs = peng._step_for(B, M, N, s_max, mr)(
+        *(torch.from_numpy(x) for x in ins))
     out_j, dc_j = np.asarray(out_j), np.asarray(dc_j)
     for g in range(n_shards):
         assert np.array_equal(outs[g].numpy(), out_j[g])

@@ -1,7 +1,8 @@
 """The port's one device program per batch (``mapper/program.py``):
 the StepProgram's slots and launch accounting, ``group_k`` in the v2
-engine against the JAX package's grouped engine, batches in flight, and
-on the card each engine graphed against itself eager.
+engine against the JAX package's grouped engine, batches in flight (the
+split engine's two seed ends too), and on the card each engine graphed
+against itself eager.
 
 Tolerance: exact equality of codes, .mfile values, mate counts,
 pileup, insertion records and (on the card) raw output blocks."""
@@ -15,12 +16,15 @@ import pytest
 import torch
 
 from pecaller_tpu.mapper.device_map2 import FusedMapperEngine2 as JaxEngine
+from pecaller_tpu_torch.mapper.device_engine import DeviceMapperEngine
 from pecaller_tpu_torch.mapper.device_map2 import FusedMapperEngine2, fetched
 from pecaller_tpu_torch.mapper.device_pipeline import FusedMapperEngine
+from pecaller_tpu_torch.mapper.gshard import OctileShardedEngine
 from pecaller_tpu_torch.mapper.program import StepProgram, capture_stats
 from pecaller_tpu_torch.ops import sw_cuda
 from torch_util import (PAIRED, batches, cuda_device, load_genome,
-                        make_fused2_data, shared_nbr)
+                        make_fused2_data, port_genome_mesh, record_split,
+                        shared_nbr)
 
 CPU = torch.device("cpu")
 __all__ = ["cuda_device"]           # the fixture, imported for the tests
@@ -239,12 +243,40 @@ def test_in_flight_matches_one_at_a_time(data, engine):
     assert [p.calls for p in eng.programs] == [6]
 
 
+def test_split_seed_ends_in_flight(data):
+    """The split engine's seed step: both ends of a batch dispatched
+    before the first fetch, as map_batch dispatches them, give what
+    dispatching and fetching each end alone gives.  The ends share one
+    program (one shape key), whose next call overwrites its output: the
+    dispatch copied it out at once."""
+    sdx, genome, index = load_genome(data)
+    eng = DeviceMapperEngine(sdx, genome, index, device=CPU, **PAIRED)
+    for s1, l1, s2, l2, _ in batches(data, "r1.fastq", "r2.fastq",
+                                     128)[:3]:
+        ends = ((s1, l1.astype(np.int64)), (s2, l2.astype(np.int64)))
+        alone = [eng._initial_map_resolve(eng._initial_map_dispatch(s, ln))
+                 for s, ln in ends]
+        pend = [eng._initial_map_dispatch(s, ln) for s, ln in ends]
+        both = [eng._initial_map_resolve(h) for h in pend]
+        for a, b in zip(alone, both):
+            for x, y in zip(a, b):
+                assert np.array_equal(x, y)
+        assert not np.array_equal(both[0][0], both[1][0])
+    assert [p.calls for p in eng.programs] == [12]
+
+
 # ---- on the card: graphed against eager
 
 def _raw(eng, bl):
     """The raw outputs of the batches ``bl``, all enqueued before the
-    first is fetched: the v2 engines' (packed rows, insertion records,
-    walk-tie records) a batch, v1's one block."""
+    first is fetched: the v2 engines' and the genome mesh's (packed
+    rows, insertion records, walk-tie records) a batch, v1's one block;
+    the split engine's seed steps and tracebacks, then its pileup."""
+    if isinstance(eng, DeviceMapperEngine):
+        seen = record_split(eng)
+        for s1, l1, s2, l2, nos in bl:
+            eng.map_batch(s1, l1, s2, l2, read_nos=nos)
+        return seen["seeds"] + seen["rec"] + [[eng.final_pileup()]]
     pend = [eng.map_batch_async(s1, l1, s2, l2, read_nos=nos)
             for s1, l1, s2, l2, nos in bl]
     if isinstance(eng, FusedMapperEngine2):
@@ -255,14 +287,17 @@ def _raw(eng, bl):
 @pytest.mark.cuda
 @pytest.mark.parametrize("engine,batch,n", [
     ("v2", 128, 3), ("v2.5", 128, 3), ("v1", 128, 3), ("mesh", 128, 3),
-    ("v2 group_k=3", 64, 9)])
+    ("v2 group_k=3", 64, 9), ("gshard", 128, 3), ("split", 128, 3)])
 def test_graph_equals_eager_on_the_card(data, cuda_device, engine, batch,
                                         n):
     """Each engine on cuda:0 with its programs graphed against the same
     engine with graph=False: n batches of one shape key (the first eager,
     the second captured and replayed, the rest replayed) give the same
-    raw outputs bitwise, and the same launch counts; graph=False
-    captures nothing."""
+    raw outputs bitwise, and the same launch counts; every program
+    called twice or more captured a graph, and graph=False captures
+    nothing.  The genome mesh: two shards on cuda:0, all of a batch one
+    graph; the split engine (device seeds): its seed steps and
+    tracebacks, K3 eager."""
     from pecaller_tpu_torch.parallel.mesh import make_mesh
     bl = batches(data, "r1.fastq", "r2.fastq", batch)[:n]
     got, counts = {}, {}
@@ -270,6 +305,13 @@ def test_graph_equals_eager_on_the_card(data, cuda_device, engine, batch,
         kw = dict(PAIRED, device=cuda_device, graph=graph)
         if engine == "v1":
             eng = _v1(data, cuda_device, graph)
+        elif engine == "gshard":
+            eng = OctileShardedEngine(*load_genome(data),
+                                      port_genome_mesh(2, cuda_device),
+                                      graph=graph, **PAIRED)
+        elif engine == "split":
+            eng = DeviceMapperEngine(*load_genome(data), device=cuda_device,
+                                     graph=graph, **PAIRED)
         else:
             (sdx, genome, index), nbr = _engine_kw(data)
             if engine == "v2.5":
@@ -286,7 +328,8 @@ def test_graph_equals_eager_on_the_card(data, cuda_device, engine, batch,
         torch.cuda.synchronize(cuda_device)
         counts[graph] = dict(sw_cuda.LAUNCHES)
         stats = capture_stats(eng.programs)
-        assert stats["graphs"] == (len(eng.programs) if graph else 0)
+        want = sum(p.calls > 1 for p in eng.programs) if graph else 0
+        assert stats["graphs"] == want and (want > 0 or not graph)
         if engine == "v2.5":
             assert eng.state.dnbr.mode == "quarter"
     for a, b in zip(got[False], got[True]):

@@ -25,7 +25,8 @@ from pecaller_tpu_torch.mapper.device_engine import DeviceMapperEngine
 from pecaller_tpu_torch.mapper.runner import SPLIT_GENOME, device_route
 from pecaller_tpu_torch.ops import sw, sw_cuda
 from torch_util import (CPU, PAIRED, SINGLE, batches, cuda_device,  # noqa
-                        load_genome, make_bisulfite_data, make_fused2_data)
+                        load_genome, make_bisulfite_data, make_fused2_data,
+                        record_split, same_records)
 
 
 @pytest.fixture(scope="module")
@@ -146,6 +147,38 @@ def test_split_engine_matches_jax(data, name, device_seeds):
     assert jeng.n_fallback == port.n_fallback
     assert port.dev_counts.dtype == torch.int16 and port.dev_counts.any()
     assert port.ins_records
+
+
+@pytest.mark.parametrize("name", list(ENGINES))
+def test_split_graph_matches_eager_and_jax(data, name):
+    """Device seeds, the engine's seed steps and tracebacks as programs
+    (graph=True) against the same engine with graph=False and against
+    the JAX engine: every seed step's and traceback's output bitwise,
+    then codes, m1 and m2 of every batch, final_pileup and insertion
+    records.  The repeated shape keys reuse their programs."""
+    base, f1, f2, kw, bs = ENGINES[name]
+    sdx, genome, index = load_genome(data, base)
+    jeng = JaxSplitEngine(sdx, genome, index, device_seeds=True, **kw)
+    engs = [DeviceMapperEngine(sdx, genome, index, device=CPU, graph=g,
+                               **kw) for g in (True, False)]
+    seen = [record_split(e) for e in engs]
+    for s1, l1, s2, l2, nos in batches(data, f1, f2, bs):
+        outs = [e.map_batch(s1, l1, s2, l2, read_nos=nos) if kw["paired"]
+                else e.map_batch(s1, l1, read_nos=nos)
+                for e in (jeng, *engs)]
+        for o in outs[1:]:
+            for a, b in zip(outs[0], o):
+                assert np.array_equal(a, b)
+    for k in ("seeds", "rec"):
+        assert seen[0][k] and same_records(seen[0][k], seen[1][k])
+    for e in engs:
+        assert np.array_equal(jeng.final_pileup(), e.final_pileup())
+        assert sorted(jeng.ins_records) == sorted(e.ins_records)
+    progs = engs[0].programs
+    assert all(p.graph for p in progs)
+    assert not any(p.graph for p in engs[1].programs)
+    assert max(p.calls for p in progs) > 1
+    assert sum(p.calls for p in progs) == sum(map(len, seen[0].values()))
 
 
 def _loader(result):

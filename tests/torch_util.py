@@ -108,6 +108,34 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+def record_split(eng):
+    """Wrap the split engine ``eng``'s seed resolve and traceback so
+    that each call's output (host arrays) is kept, in call order:
+    returns {"seeds": [(hits, hits_off, orient, tot, rev), ...],
+    "rec": [(insertion records,), ...]}."""
+    seen = {"seeds": [], "rec": []}
+    resolve, traceback = eng._initial_map_resolve, eng._traceback
+
+    def seeds(handle):
+        out = resolve(handle)
+        seen["seeds"].append(tuple(np.array(x) for x in out))
+        return out
+
+    def rec(lanes):
+        out = traceback(lanes)
+        seen["rec"].append((np.array(out),))
+        return out
+    eng._initial_map_resolve, eng._traceback = seeds, rec
+    return seen
+
+
+def same_records(a, b):
+    """Two record_split lists hold the same arrays, bitwise."""
+    return len(a) == len(b) and all(
+        len(x) == len(y) and all(np.array_equal(u, v) for u, v in zip(x, y))
+        for x, y in zip(a, b))
+
+
 # ---- the fused step on one batch, for both packages
 
 CPU = torch.device("cpu")
