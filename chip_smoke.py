@@ -33,8 +33,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      PECALLER_GROUP_K=3 (three batches a graph), the same five
      artifacts byte-equal; then graph_vs_eager against the engine with
      graph=False: raw outputs of three batches bitwise, and for each
-     engine reads/s over the batches (median of 3 passes after a warm
-     pass), host enqueue and resolve ms a batch, peak memory above the
+     engine reads/s over the batches (graphed: median of 3 passes after
+     a warm pass; eager: one pass after a warm pass), host enqueue and resolve ms a batch, peak memory above the
      resident engines and memory reserved; capture and instantiate
      seconds, graph pool bytes, one batch's replay in device ms;
      group_k=3's reads/s; fallbacks, re-walked ties
@@ -59,18 +59,20 @@ Phases (each prints one line; any failure raises and exits non-zero):
      sent to the host, peak device memory
   7. split path: the split engine (DeviceMapperEngine: SW scores by K3,
      the traceback and 2-byte pileup counters on the card, the seed step
-     and the traceback each one graph a shape key) on phase 6's data, as
-     the runner builds it at 2^30 bases and more (host seeds), and once
+     and the traceback each one graph a shape key) on phase 6's data
      with device seeds: phase 5's gate against phase 6's host oracle, K3
-     launched twice per batch; K3 at the engine's shape (kernel, plain
-     and bound), host seconds per batch of the seed step, the traceback
-     and the batch, reads/s over the gate run's batches, the graphs'
-     capture seconds and pool bytes, peak device memory; then the
-     device-seed engine against one built with graph=False on the same
-     seed index (split_graph_vs_eager): every seed step's and
-     traceback's output, the pileup and the insertion records bitwise
-     over one pass of every batch each, with each one's reads/s and host
-     seconds
+     launched twice per batch; then as the runner builds it at 2^30
+     bases and more (host seeds) over the first SPLIT_HOST_BATCHES (2)
+     batches, each batch's codes, m1, m2 and traceback records bitwise
+     to the device-seed run's, K3 launched twice per batch; K3 at the
+     engine's shape (kernel, plain and bound), host seconds per batch of
+     the seed step, the traceback and the batch, reads/s over each run's
+     batches, the graphs' capture seconds and pool bytes, peak device
+     memory; then the device-seed engine against one built with
+     graph=False on the same seed index (split_graph_vs_eager): every
+     seed step's and traceback's output, the pileup and the insertion
+     records bitwise over one pass of every batch each, with each one's
+     reads/s and host seconds
   7b. human-scale counters: the split engine's (3.1e9, 6) int16 pileup
      (37.2 GB) on the card, pileup_scatter with sw_traceback_scatter's
      event layout at positions on both sides of 2^30 and 2^31 and in the
@@ -87,18 +89,26 @@ Phases (each prints one line; any failure raises and exits non-zero):
      window's UNRES sites exceed the small-set rule) and (b) both screen
      phases on the card (host_screen False): .snp, .dist and the
      decompressed .base.gz and .piles.gz byte-equal to the oracle's;
-     (b)'s phase 1 must take sites on the card; for each route sites/s
-     (median of 3 passes after a warm pass), each stage's seconds, the
-     sites each screen phase took on the card, the EASY / BAD / HARD
-     counts, the sites sent to the native engine, peak device memory;
-     the oracle's seconds.  No kernel of K1-K3 lies on this path.
+     (b)'s phase 1 must take sites on the card; the screen's (phase,
+     bucket) steps run as device programs (CUDA graphs); for each route
+     sites/s (median of 3 passes after a warm pass), each stage's
+     seconds, the sites each screen phase took on the card, the EASY /
+     BAD / HARD counts, the sites sent to the native engine, the
+     programs' capture and instantiate seconds and pool bytes, peak
+     device memory; route (b) again with graph=False (the same gate, one
+     pass after a warm pass); the oracle's seconds.  No kernel of K1-K3
+     lies on this path.
   8b. the screen's contract on the card: CallerScreen at one full chunk
      of 3 samples (2^18 sites) and one of 64 (2^15) on screen_fuzz's
      counts; phase-0 codes bitwise equal to the CPU's and to the native
      phase 0, phase-1 codes held to screen_contract against the CPU's
      (no site EASY whose float64 margins fail the exact criterion; equal
-     but for sites within 0.15 of a threshold, counted); each phase's ms
-     per chunk (CUDA events) and the screen's sites/s
+     but for sites within 0.15 of a threshold, counted); both phases'
+     programs (graphs) bitwise to graph=False at the full chunk and at
+     tails of 1,500 and 5,000 sites (buckets 2^11 and 2^13); each
+     phase's ms per chunk eager and as one graph replay (CUDA events),
+     the programs' capture and instantiate seconds and pool bytes, and
+     the screen's sites/s graphed and eager
 
   9. reads-axis mesh: phase 4's data through `pemapper --device` with
      mesh_shards 2 on [cuda:0, cuda:0] (run_mapper with a device list),
@@ -136,16 +146,29 @@ Phases (each prints one line; any failure raises and exits non-zero):
      samples on 8,192 fuzz sites the screen leaves HARD: beam, beam +
      finisher, beam + finisher + native on the flagged sites and the
      native engine alone (host cores as threads) in sites/s, the beam
-     path's outputs equal to the native run's, ms a 1024-site chunk
-     (CUDA events), peak memory
+     path's outputs equal to the native run's; one 1024-site chunk of
+     the graphed beam bitwise to the eager chunk, the ms of each (CUDA
+     events); peak memory.  The beam's chunk is a device program (a
+     CUDA graph) throughout, the cohort's too
   13. the sharded steps: sharded_map_step on two shards of cuda:0 at
      8,192 lanes of the v1 shape (K3 on each shard), the whole step one
      graph, called eagerly, captured and replayed: score, bk, bi and the
      reduce-scattered pileup blocks bitwise against the one-device plain
      path and against the step with graph=False, bisulfite off and on;
-     sharded_call_step equal to site_likelihoods on one device
+     sharded_call_step with graph=False and graphed (one program a
+     shape holding both shards: called eagerly, captured, replayed),
+     each bitwise to site_likelihoods on one device, with the step
+     seconds and the program's capture seconds and pool bytes
 
-Then a JSON line of the kernels (launches summed over the gate runs of
+Depth cuts that keep the full run inside its time limit: phase 5 rates
+v1 over its first 4 batches (V1_RATE_BATCHES); graph_vs_eager (phases
+4-6, 9, 10) takes one eager pass after a warm pass beside the graphed
+engine's median of 3; phase 7's host-seed run maps its first 2 batches
+(SPLIT_HOST_BATCHES), held bitwise to the gated device-seed run's
+outputs on those batches.
+
+Then the run's total seconds on a line of its own, a JSON line of the
+kernels (launches summed over the gate runs of
 phases 4-7, 9, 10 and 13, a graph's replays counted as its captured
 launches), and last the result line {"ok": true, "device": {...}}.  With
 --kernels: phases 1-3, the kernels line with launches null, and no result
@@ -160,6 +183,7 @@ pecaller_tpu; the run fails if either entered sys.modules.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gzip
 import json
 import os
@@ -178,6 +202,7 @@ MID_PAIRS = 50_000
 HUMAN_LEN = 3_100_000_000            # hg38 scale, for phase 7b
 BATCH = 8192
 V1_RATE_BATCHES = 4                # phase 5's reads/s passes (of 13 batches)
+SPLIT_HOST_BATCHES = 2             # phase 7's host-seed run (of 7 batches)
 N_ROWS = 125                       # R_ROWS of 100 bp reads: 104 + 2*10 + 1
 # H100 SXM rates used for the bounds (NVIDIA data sheet; 700 W): HBM
 # bytes/s, and integer operations/s at the card's issue rate, 132 SMs x
@@ -1010,10 +1035,10 @@ def _batches(n_pairs, data=DATA):
                              batch_size=BATCH, max_reads=n_pairs).batches())
 
 
-def _rates(eng, batches, dev):
+def _rates(eng, batches, dev, passes=3):
     """Reads/s of passes over the batches (the runner's 2 * group_k + 1
-    in flight): the median of 3 after a warm pass, or the warm pass alone
-    when it takes over 30 s."""
+    in flight): the median of ``passes`` after a warm pass, or the warm
+    pass alone when it takes over 30 s."""
     import torch
 
     host_s = {"enqueue": 0.0, "resolve": 0.0}
@@ -1044,8 +1069,9 @@ def _rates(eng, batches, dev):
     if secs > 30:
         rates, how = [warm], "one pass (over 30 s)"
     else:
-        rates = sorted(one_pass()[0] for _ in range(3))
-        how = "median of 3 after a warm pass"
+        rates = sorted(one_pass()[0] for _ in range(passes))
+        how = (f"median of {passes} after a warm pass" if passes > 1
+               else "one pass after a warm pass")
     # host seconds per batch of the last pass: enqueue (map_batch_async:
     # the input copies and the replay, or the eager step) and resolve
     # (waiting on the copy included)
@@ -1092,7 +1118,9 @@ def graph_vs_eager(graphed, eager, batches, dev, n_check=3):
     """The graphed engine of a gate run against the same engine built
     with graph=False: the raw outputs of the first ``n_check`` batches
     (one shape key: replays of the captured graph) bitwise; then, eager
-    first, each engine's reads/s (``_rates``), host ms a batch, the peak
+    first, each engine's reads/s (``_rates``: the graphed engine's median
+    of 3 after a warm pass, the eager one's one pass after a warm pass),
+    host ms a batch, the peak
     device memory its passes allocated above what was allocated before
     them (other engines stay resident) and the memory reserved after
     them, the mesh's dispatch and fetch ms a batch; the graphs' capture
@@ -1116,7 +1144,8 @@ def graph_vs_eager(graphed, eager, batches, dev, n_check=3):
             mt.update(dispatch_s=0.0, fetch_s=0.0, batches=0)
         resident = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        rates, how, per_batch = _rates(eng, batches, dev)
+        rates, how, per_batch = _rates(eng, batches, dev,
+                                       1 if name == "eager" else 3)
         r = dict(reads_per_s=rates[len(rates) // 2],
                  reads_per_s_passes=rates, spread=_spread(rates),
                  passes=how,
@@ -1532,13 +1561,35 @@ def split_graph_vs_eager(graphed, eager, batches, dev):
     return out
 
 
+def _keep_batches(eng, acc, n):
+    """Keep the outputs of ``eng``'s first ``n`` map_batch calls, each
+    with the traceback records it made (``acc["rec"]`` of
+    ``_split_timers(keep=True)``): a list of (outputs, records)."""
+    import numpy as np
+    kept, fn = [], eng.map_batch
+
+    def run(*a, **k):
+        r0 = len(acc["rec"])
+        res = fn(*a, **k)
+        if len(kept) < n:
+            kept.append(([np.array(x) for x in res], acc["rec"][r0:]))
+        return res
+    eng.map_batch = run
+    return kept
+
+
 def split_path(n_pairs, host):
-    """Phase 7: the split engine on phase 6's data, with host seeds (the
-    runner's configuration at 2^30 bases and more) and with device
-    seeds, each gated as v1 against phase 6's host oracle, its seed
-    steps and tracebacks graphed; then the device-seed engine against
-    graph=False (``split_graph_vs_eager``).  Returns K3's launches
-    summed over both gate runs and the graphs' pool bytes of each."""
+    """Phase 7: the split engine on phase 6's data with device seeds,
+    its seed steps and tracebacks graphed, gated as v1 against phase 6's
+    host oracle; then with host seeds (the runner's configuration at
+    2^30 bases and more) over the first SPLIT_HOST_BATCHES batches, each
+    batch's codes, m1, m2 and traceback records bitwise to the
+    device-seed run's on that batch (tests/test_torch_split.py's
+    test_host_and_device_seeds_agree holds the two seeders equal over
+    whole runs); then the device-seed engine against graph=False
+    (``split_graph_vs_eager``).  Returns K3's launches summed over both
+    runs and the graphs' pool bytes of each."""
+    import numpy as np
     import torch
     from pecaller_tpu_torch import cli
     from pecaller_tpu_torch.formats.index_files import load_index
@@ -1558,7 +1609,8 @@ def split_path(n_pairs, host):
     want = _artifacts(os.path.join(MID, "host"))
     k3_launches, pools = 0, {}
     align = sw_cuda.sw_align
-    for seeds in ("host", "device"):
+    kept = {}
+    for seeds in ("device", "host"):
         d = _run_dir(f"split_{seeds}", MID)
         cfg = cli.parse_pemapper(_argv(d, n_pairs, True, MID))
         kw = dict(bisulfite=cfg.bisulfite, min_align=cfg.min_align,
@@ -1577,91 +1629,121 @@ def split_path(n_pairs, host):
             if refs.shape[0] >= seen.get("lanes", 0):
                 seen.update(lanes=refs.shape[0], args=(refs, *a), kw=k)
             return align(refs, *a, **k)
-        acc = _split_timers(eng)
+        acc = _split_timers(eng, keep=True)
+        kept[seeds] = _keep_batches(eng, acc, SPLIT_HOST_BATCHES)
+        run = batches if seeds == "device" else batches[:SPLIT_HOST_BATCHES]
         sw_cuda.sw_align = k3
         try:
             sw_cuda.reset_launches()
             t0 = time.time()
-            map_files(cfg, eng, sdx, genome)
+            if seeds == "device":
+                map_files(cfg, eng, sdx, genome)
+            else:
+                for s1, l1, s2, l2, nos in run:
+                    eng.map_batch(s1, l1, s2, l2, read_nos=nos)
             torch.cuda.synchronize(dev)
             t_run = time.time() - t0
             launches = dict(sw_cuda.LAUNCHES)
         finally:
             sw_cuda.sw_align = align
-        if launches["sw_align"] != 2 * len(batches):
+        if launches["sw_align"] != 2 * len(run):
             raise AssertionError(f"K3 launched {launches['sw_align']} "
-                                 f"times for {len(batches)} batches")
+                                 f"times for {len(run)} batches")
         k3_launches += launches["sw_align"]
-        got = _artifacts(d)
-        diff = [k for k in ("out.summary.txt", "r1.fastq.mfile",
-                            "r2.fastq.mfile") if got[k] != want[k]]
-        if diff:
-            raise AssertionError(f"split ({seeds} seeds) artifacts differ "
-                                 f"from the host oracle's: {diff}")
-        n_tie_rows, rotated = tie_local_pileup(p_host, eng.final_pileup())
-        ins_s = sorted((k, len(s)) for k, _, s in eng.ins_records)
-        if ins_s != ins_h:
-            raise AssertionError(f"split ({seeds} seeds) insertion records "
-                                 "differ from the host oracle's (read, "
-                                 "length) multiset")
+        gate = {}
+        if seeds == "device":
+            got = _artifacts(d)
+            diff = [k for k in ("out.summary.txt", "r1.fastq.mfile",
+                                "r2.fastq.mfile") if got[k] != want[k]]
+            if diff:
+                raise AssertionError(f"split ({seeds} seeds) artifacts "
+                                     f"differ from the host oracle's: {diff}")
+            n_tie_rows, rotated = tie_local_pileup(p_host,
+                                                   eng.final_pileup())
+            ins_s = sorted((k, len(s)) for k, _, s in eng.ins_records)
+            if ins_s != ins_h:
+                raise AssertionError(
+                    f"split ({seeds} seeds) insertion records differ from "
+                    "the host oracle's (read, length) multiset")
+            gate = dict(
+                byte_equal=["out.summary.txt", "r1.fastq.mfile",
+                            "r2.fastq.mfile"]
+                + ([".pileup.gz"] if got[".pileup.gz"] == want[".pileup.gz"]
+                   else []),
+                pileup_rows_tie_shifted=n_tie_rows,
+                tie_rotated_insertion_clusters=rotated,
+                insertions=len(ins_s))
+        else:
+            for i, ((a, ra), (b, rb)) in enumerate(zip(kept["host"],
+                                                       kept["device"])):
+                if len(a) != len(b) or not all(
+                        np.array_equal(x, y) for x, y in zip(a, b)):
+                    raise AssertionError(f"split batch {i}: host seeds' "
+                                         "codes, m1 or m2 differ from "
+                                         "device seeds'")
+                if len(ra) != len(rb) or not all(
+                        np.array_equal(x, y) for u, v in zip(ra, rb)
+                        for x, y in zip(u, v)):
+                    raise AssertionError(f"split batch {i}: host seeds' "
+                                         "traceback records differ from "
+                                         "device seeds'")
+            gate = dict(bitwise_to_device_seeds=dict(
+                batches=len(kept["host"]),
+                what="codes, m1, m2 and traceback records a batch"))
         n_fallback = eng.n_fallback
         peak = torch.cuda.max_memory_allocated(dev)
         # map_batch returns the batch's result on the host, so its
         # seconds are the batch's; the first batch is timed too (the
         # kernels were built and loaded in phase 3)
-        rate, batch_s = _split_rate(acc, batches), list(acc["batch"])
+        rate, batch_s = _split_rate(acc, run), list(acc["batch"])
         graphs = capture_stats(eng.programs)
         if not graphs["graphs"]:
             raise AssertionError(f"split ({seeds} seeds): no program "
                                  "captured a graph")
         pools[seeds] = graphs["pool_bytes"]
 
-        # K3 at the engine's shape: kernel against plain, bitwise, timed
-        args, kw3 = seen["args"], seen["kw"]
-        refs, bl, reads, rl = args
-        nr = kw3["n_rows"]
-        kk = align(*args, **kw3)
-        pp = sw.sw_align_device(*args, **kw3)
-        err = _max_abs_err(kk, pp)
-        if err:
-            raise AssertionError(f"K3 != plain at the split engine's shape "
-                                 f"{tuple(refs.shape)} x {reads.shape[1]}")
-        cells = int((torch.clamp(bl, 0, nr).long()
-                     * rl.clamp(0, reads.shape[1]).long()).sum())
-        k3_at = dict(
-            shape=[refs.shape[0], refs.shape[1], reads.shape[1], nr],
-            group=sw_cuda.load_kernels().sw_lane_group(reads.shape[1]),
-            cols=sw_cuda.load_kernels().sw_lane_cols(reads.shape[1], 0),
-            max_abs_err=err, ms=_timed(lambda: align(*args, **kw3), 5),
-            plain_ms=_timed(lambda: sw.sw_align_device(*args, **kw3), 2),
-            bound=bound_ms("sw_align", cells, sum(
-                x.numel() * x.element_size() for x in args),
-                sum(x.numel() * x.element_size() for x in kk)))
-        del seen, kk, pp, args
-
-        cmp = {}
+        k3_at, cmp = {}, {}
         if seeds == "device":
+            # K3 at the engine's shape: kernel against plain, bitwise,
+            # timed
+            args, kw3 = seen["args"], seen["kw"]
+            refs, bl, reads, rl = args
+            nr = kw3["n_rows"]
+            kk = align(*args, **kw3)
+            pp = sw.sw_align_device(*args, **kw3)
+            err = _max_abs_err(kk, pp)
+            if err:
+                raise AssertionError(f"K3 != plain at the split engine's "
+                                     f"shape {tuple(refs.shape)} x "
+                                     f"{reads.shape[1]}")
+            cells = int((torch.clamp(bl, 0, nr).long()
+                         * rl.clamp(0, reads.shape[1]).long()).sum())
+            k3_at = dict(
+                shape=[refs.shape[0], refs.shape[1], reads.shape[1], nr],
+                group=sw_cuda.load_kernels().sw_lane_group(reads.shape[1]),
+                cols=sw_cuda.load_kernels().sw_lane_cols(reads.shape[1], 0),
+                max_abs_err=err, ms=_timed(lambda: align(*args, **kw3), 5),
+                plain_ms=_timed(lambda: sw.sw_align_device(*args, **kw3),
+                                2),
+                bound=bound_ms("sw_align", cells, sum(
+                    x.numel() * x.element_size() for x in args),
+                    sum(x.numel() * x.element_size() for x in kk)))
+            del kk, pp, args
             eager = DeviceMapperEngine(sdx, genome, index, device=dev,
                                        graph=False, seed_index=eng._dindex,
                                        **kw)
             cmp = split_graph_vs_eager(eng, eager, batches, dev)
             del eager
+        del seen
         say("split_path", seeds=seeds, genome=MID_LEN, pairs=n_pairs,
-            batch=BATCH,
-            byte_equal=["out.summary.txt", "r1.fastq.mfile",
-                        "r2.fastq.mfile"]
-            + ([".pileup.gz"] if got[".pileup.gz"] == want[".pileup.gz"]
-               else []),
-            pileup_rows_tie_shifted=n_tie_rows,
-            tie_rotated_insertion_clusters=rotated, insertions=len(ins_s),
-            launches=launches, batches=len(batches), k3=k3_at,
-            **rate, batch_s=batch_s,
-            passes="the gate run's batches (map_batch seconds), graphed",
+            batch=BATCH, **gate, launches=launches, batches=len(run),
+            k3=k3_at, **rate, batch_s=batch_s,
+            passes="the run's batches (map_batch seconds), graphed",
             graphs=graphs, **cmp, n_fallback=n_fallback,
             max_memory_allocated=peak,
             seconds=dict(engine_build=round(t_build, 1),
                          device_run=round(t_run, 1)))
-        del eng
+        del eng, acc
         torch.cuda.empty_cache()
     return k3_launches, pools
 
@@ -1836,6 +1918,8 @@ CALL_SAMPLES = 3
 CALL_DEPTH = 30
 # phase 8b: (samples, sites) of one full screen chunk each
 SCREEN_CHUNKS = ((3, 1 << 18), (64, 1 << 15))
+# phase 8b: tails in two smaller buckets (2^11 and 2^13 sites)
+SCREEN_TAILS = (1500, 5000)
 # the f32 error the screen's band allows for (caller/device_screen.py)
 SCREEN_TOL = 0.15
 
@@ -1919,18 +2003,18 @@ def _call_gate(route, base, want):
                              "the exact path's")
 
 
-def _call_passes(run):
+def _call_passes(run, n=3):
     """sites/s of ``run()`` (which returns run_caller's result): the
-    median of 3 passes after a warm pass, the passes, and the median
+    median of ``n`` passes after a warm pass, the passes, and the median
     pass's result."""
     run()
     passes = []
-    for _ in range(3):
+    for _ in range(n):
         t0 = time.time()
         res = run()
         passes.append((res["n_sites"] / (time.time() - t0), res))
     passes.sort(key=lambda p: p[0])
-    return passes[1][0], [p[0] for p in passes], passes[1][1]
+    return passes[n // 2][0], [p[0] for p in passes], passes[n // 2][1]
 
 
 def caller_path(n_pairs, data=DATA):
@@ -1942,7 +2026,9 @@ def caller_path(n_pairs, data=DATA):
     window's UNRES sites exceed the small-set rule) and (b) both screen
     phases on the card
     (host_screen False) must each give the oracle's artifacts byte for
-    byte."""
+    byte, the screen's (phase, bucket) steps as device programs; then
+    route (b) with graph=False, gated the same, one pass after a warm
+    pass."""
     import torch
     from pecaller_tpu_torch import cli
     from pecaller_tpu_torch.caller import CallerConfig, run_caller
@@ -1982,6 +2068,16 @@ def caller_path(n_pairs, data=DATA):
         torch.cuda.max_memory_allocated(dev),)
     if not routes["b"][2]["screen_sites"]["phase1"]:
         raise AssertionError("route b: phase 1 took no site on the card")
+    if not routes["b"][2]["programs"]["screen"]["graphs"]:
+        raise AssertionError("route b: the screen captured no graph")
+    # (b) eager: the screen's steps with graph=False, one pass after a
+    # warm pass, the same gate
+    cfg_e = dataclasses.replace(cfg_b, out_base=os.path.join(cb, "eager"),
+                                graph=False)
+    eager_b = _call_passes(lambda: run_caller(cfg_e), 1)
+    _call_gate("b eager", cfg_e.out_base, want)
+    if eager_b[2]["programs"]["screen"]["graphs"]:
+        raise AssertionError("graph=False captured a graph")
 
     out = {}
     for k, (rate, rates, res, peak) in routes.items():
@@ -1990,7 +2086,12 @@ def caller_path(n_pairs, data=DATA):
                       phases_s=res["phases"],
                       sites_on_card=res["screen_sites"],
                       codes=res["codes"], native_sites=res["native_sites"],
+                      programs=res["programs"]["screen"],
                       max_memory_allocated=peak)
+    out["b_eager"] = dict(sites_per_s=eager_b[0],
+                          passes="one pass after a warm pass",
+                          phases_s=eager_b[2]["phases"],
+                          graph_over_eager=routes["b"][0] / eager_b[0])
     say("caller_path", samples=CALL_SAMPLES, sites=routes["a"][2]["n_sites"],
         byte_equal=sorted(want), passes="median of 3 after a warm pass",
         a_phase1_on_card="the card takes a window's phase 1 only where "
@@ -2136,12 +2237,19 @@ def screen_check():
     (2^18 sites) and one of 64 (2^15), on screen_fuzz's counts: phase-0
     codes bitwise equal to the CPU's and to the native phase 0
     (host_screen_stats); phase 1 on every site held to screen_contract
-    against the CPU's; each phase's time per chunk (CUDA events) and the
-    screen's own sites/s (host arrays in, codes out)."""
+    against the CPU's; both phases as device programs (graphs, called
+    twice a key so that the second call captures and replays) bitwise
+    to the same screen with graph=False at the full chunk and at a tail
+    in each of two smaller buckets (SCREEN_TAILS); each phase's ms per
+    chunk, the eager steps and one graph replay (CUDA events); the
+    programs' capture and instantiate seconds and pool bytes; the
+    screen's own sites/s (host arrays in, codes out), graphed and
+    eager."""
     import numpy as np
     import torch
-    from pecaller_tpu_torch.caller.device_screen import (
-        CallerScreen, UNRES, _phase0_chunk, _phase0_tables)
+    from pecaller_tpu_torch.caller.device_screen import (CallerScreen,
+                                                         UNRES,
+                                                         _phase0_tables)
     from pecaller_tpu_torch.caller.native import host_screen_stats
     dev = torch.device("cuda", 0)
     held = torch.cuda.memory_allocated(dev)    # as in caller_path
@@ -2150,6 +2258,7 @@ def screen_check():
         rng = np.random.default_rng(88 + indiv)
         reads, ref_int, ctype = screen_fuzz(rng, n, indiv)
         gpu = CallerScreen(indiv, False)
+        eager = CallerScreen(indiv, False, graph=False)
         cpu = CallerScreen(indiv, False, device="cpu")
         if gpu.chunk != n:
             raise AssertionError(f"chunk {gpu.chunk} != {n}")
@@ -2169,30 +2278,59 @@ def screen_check():
         c1_cpu = cpu.phase1(reads, ref_int, ctype)
         n_band = screen_contract(c1, c1_cpu, reads, ref_int, ctype, False)
 
+        # graphed against eager: the second call of each key captures
+        # and replays
+        checked = []
+        for m in (n, *SCREEN_TAILS):
+            x = (reads[:m], ref_int[:m], ctype[:m])
+            for ph in ("phase0", "phase1"):
+                want = getattr(eager, ph)(*x)
+                for _ in range(2):
+                    got = getattr(gpu, ph)(*x)
+                    if not np.array_equal(got, want):
+                        raise AssertionError(
+                            f"{ph} at {indiv} samples, {m} sites: the "
+                            "graphed codes differ from the eager ones")
+            checked.append(dict(sites=m, bucket=gpu._bucket(m)))
+        stats = gpu.program_stats()
+        if stats["graphs"] != 2 * len(checked):
+            raise AssertionError(f"{stats['graphs']} graphs for "
+                                 f"{len(checked)} buckets")
+
         args = (torch.from_numpy(reads.view(np.int16)).to(dev),
                 torch.from_numpy(ref_int).to(dev),
                 torch.from_numpy(ctype).to(dev))
-        ms0 = _timed(lambda: _phase0_chunk(
-            *args, haploid=False, indiv=indiv,
-            ptab=gpu._tabs[dev]["ptab"]), 5)
-        torch.cuda.reset_peak_memory_stats(dev)
-        ms1 = _timed(lambda: gpu._fn("phase1", dev)(*args), 5)
-        peak1 = torch.cuda.max_memory_allocated(dev)
-        gpu(reads, ref_int, ctype)
-        t0 = time.time()
-        codes = gpu(reads, ref_int, ctype)
-        t_call = time.time() - t0
+        ms = {}
+        for ph in ("phase0", "phase1"):
+            (prog, _, _), = gpu.programs[(ph, n)]
+            torch.cuda.reset_peak_memory_stats(dev)
+            ms[ph] = dict(eager_ms=_timed(
+                lambda: eager._fn(ph, dev)(*args), 5),
+                eager_max_memory_allocated=torch.cuda.max_memory_allocated(
+                    dev),
+                replay_ms=_timed(prog._graph.replay, 5),
+                capture_s=prog.capture_s, instantiate_s=prog.instantiate_s,
+                pool_bytes=prog.pool_bytes)
+        rates = {}
+        for name, scr in (("graph", gpu), ("eager", eager)):
+            scr(reads, ref_int, ctype)
+            t0 = time.time()
+            codes = scr(reads, ref_int, ctype)
+            rates[name] = n / (time.time() - t0)
         out.append(dict(
             samples=indiv, sites=n, chunk=gpu.chunk,
             phase0_unres=int((c0 == UNRES).sum()),
             codes={k: int((codes == v).sum())
                    for k, v in (("hard", 0), ("easy", 1), ("bad", 2))},
             phase1_differ_from_cpu_in_band=n_band,
-            phase0_ms=ms0, phase1_ms=ms1, phase1_max_memory_allocated=peak1,
-            screen_sites_per_s=n / t_call))
+            graph_equal_eager=checked, ms_per_chunk=ms, programs=stats,
+            screen_sites_per_s=rates))
     say("screen_check", chunks=out, memory_allocated_at_start=held,
         fuzz="test_screen kinds, margin sweep, TMAX and DEPTH_GATE edges, "
-        "counts >= 32768, argmax ties, ref 4 and 5, chrY")
+        "counts >= 32768, argmax ties, ref 4 and 5, chrY",
+        note="ms by CUDA events over 5 calls on the full chunk: eager_ms "
+        "the phase's step eagerly, replay_ms one replay of its graph; "
+        "sites/s on the host clock over one whole call after a warm call")
 
 
 # ---------------------------------------------------------------------------
@@ -2716,12 +2854,15 @@ def beam_path(cb, want):
     cuda:0 held to beam_contract; (c) the sweep at 3, 8, 16 and 32
     samples on 8,192 HARD fuzz sites each: beam, beam + finisher, beam +
     finisher + native on the flagged sites, and the native engine alone
-    (nthreads = host cores), each in sites/s; the beam's ms a chunk
-    (CUDA events) and its peak memory."""
+    (nthreads = host cores), each in sites/s; one chunk of the graphed
+    beam bitwise to the eager chunk, each one's ms a chunk (CUDA events)
+    and its peak memory.  The beam's chunk runs as a device program
+    throughout."""
     import numpy as np
     import torch
     from pecaller_tpu_torch.caller import CallerConfig, run_caller
     from pecaller_tpu_torch.caller.device_beam import DeviceBeam, finish_f64
+    from pecaller_tpu_torch.mapper.program import capture_stats
     dev = torch.device("cuda", 0)
     threads = os.cpu_count() or 2
     t_phase = time.time()
@@ -2736,6 +2877,8 @@ def beam_path(cb, want):
     _call_gate("beam", cfg.out_base, want)
     if not res["beam_sites"]:
         raise AssertionError("the beam took no site of the cohort")
+    if not res["programs"]["beam"]["graphs"]:
+        raise AssertionError("the cohort's beam captured no graph")
     cohort = dict(sites=res["n_sites"], hard=res["codes"]["hard"],
                   beam_sites=res["beam_sites"],
                   beam_flagged=res["beam_flagged"],
@@ -2743,6 +2886,7 @@ def beam_path(cb, want):
                   beam_s=res["phases"].get("beam"),
                   beam_finish_s=res["phases"].get("beam_finish"),
                   native_s=res["phases"].get("native"),
+                  programs=res["programs"],
                   first_run_s=t_warm, byte_equal=sorted(want))
 
     fuzz = []
@@ -2797,9 +2941,16 @@ def beam_path(cb, want):
             if not np.array_equal(path, w):
                 raise AssertionError(f"sweep at {indiv} samples: output "
                                      f"{k} of the beam path differs")
+        # one chunk, graphed (the run above captured the program)
+        # against eager, bitwise, and each one's ms
         chunk = tuple(torch.from_numpy(x[:beam.chunk]).to(dev) for x in
                       (reads.view(np.int16), ref))
+        got = beam.program([chunk])[0].clone()
+        if not torch.equal(got, beam.chunk_fn(*chunk)):
+            raise AssertionError(f"sweep at {indiv} samples: the graphed "
+                                 "chunk differs from the eager one")
         ms = _timed(lambda: beam.chunk_fn(*chunk), 3)
+        replay_ms = _timed(beam.program._graph.replay, 3)
         prof = _device_profile(lambda: beam.chunk_fn(*chunk))
         sweep.append(dict(
             samples=indiv, sites=n, flag_rate=float(1 - ok.mean()),
@@ -2809,6 +2960,8 @@ def beam_path(cb, want):
             native_sites_per_s=n / t_nat, native_threads=threads,
             beam_s=t_beam, finish_s=t_fin, native_flagged_s=t_rest,
             native_s=t_nat, chunk=beam.chunk, chunk_ms=ms,
+            replay_ms=replay_ms, graph_equal_eager=True,
+            program=capture_stats([beam.program]),
             chunk_device_ms=prof["device_ms"],
             chunk_device_events=prof["device_events"],
             chunk_idle_share=1.0 - prof["device_ms"] / ms,
@@ -2816,11 +2969,12 @@ def beam_path(cb, want):
             beam_max_memory_allocated=peak))
     say("beam", cohort=cohort, fuzz=fuzz, sweep=sweep,
         seconds=time.time() - t_phase,
-        note="sites/s on host arrays (upload, fetch and unpack "
-        "included); chunk_ms by CUDA events over 3 chunks of 1024 sites, "
-        "chunk_device_ms the kernels' own time in one chunk "
-        "(torch.profiler); beam path = beam + finisher + native on the "
-        "flagged sites")
+        note="the beam's chunk a device program (a CUDA graph); sites/s "
+        "on host arrays (upload, fetch and unpack included); chunk_ms "
+        "(the eager chunk) and replay_ms (one replay of the chunk's graph) "
+        "by CUDA events over 3 chunks of 1024 sites, chunk_device_ms the "
+        "eager chunk's kernels' own time (torch.profiler); beam path = "
+        "beam + finisher + native on the flagged sites")
 
 
 # ---------------------------------------------------------------------------
@@ -2838,7 +2992,9 @@ def sharded_steps():
     the one-device plain path (sw_align_device, the traceback and
     pileup_scatter on cuda:0) over phase 4's genome size on lanes a and
     against the step with graph=False on lanes b, bisulfite off and on;
-    then sharded_call_step against site_likelihoods on one device.
+    then sharded_call_step, with graph=False and graphed (called three
+    times: eagerly, captured, replayed), each bitwise to site_likelihoods
+    on one device.
     Returns K3's launches of the graphed step."""
     import numpy as np
     import torch
@@ -2906,15 +3062,36 @@ def sharded_steps():
         0, 400, (CALL_STEP_SITES, 3, 6)).astype(np.int16)).to(dev)
     ref_int = torch.from_numpy(rng.integers(
         0, 4, CALL_STEP_SITES).astype(np.uint8)).to(dev)
-    got = sharded_call_step(mesh, 3)(reads, ref_int)
     want = site_likelihoods(reads, ref_int)
+    t0 = time.time()
+    got = sharded_call_step(mesh, 3, graph=False)(reads, ref_int)
+    torch.cuda.synchronize(dev)
+    t_eager = time.time() - t0
     if not torch.equal(got, want):
-        raise AssertionError("sharded_call_step differs from "
+        raise AssertionError("sharded_call_step (graph=False) differs from "
                              "site_likelihoods on one device")
+    call = sharded_call_step(mesh, 3)
+    secs = []
+    for name in ("eager call", "captured", "replayed"):
+        t0 = time.time()
+        got = call(reads, ref_int)
+        torch.cuda.synchronize(dev)
+        secs.append(time.time() - t0)
+        if not torch.equal(got, want):
+            raise AssertionError(f"sharded_call_step ({name}) differs from "
+                                 "site_likelihoods on one device")
+    prog, = call.programs.values()
     say("sharded_steps", shards=mesh.size, devices=[str(dev)] * mesh.size,
         map_lanes=MAP_STEP_LANES, map_shape=[160, 112], genome_size=gs,
         k3_launches=launches, bitwise=True, map=out,
         call_sites=CALL_STEP_SITES, call_equal_one_device=True,
+        call_graph_equal_eager=True,
+        call_step_s=dict(zip(("eager_call", "capture_and_replay", "replay"),
+                             secs)),
+        call_graph_false_step_s=t_eager,
+        call_program=dict(capture_s=prog.capture_s,
+                          instantiate_s=prog.instantiate_s,
+                          pool_bytes=prog.pool_bytes),
         seconds=time.time() - t_phase)
     return launches
 
@@ -2954,6 +3131,7 @@ def main():
                     "the data and oracles they need: the kernels line, "
                     "no result line")
     args = ap.parse_args()
+    t_start = time.time()
     sys.path.insert(0, ROOT)
     before = _foreign_modules()
     import torch
@@ -2962,6 +3140,7 @@ def main():
         cb, call_want = caller_path(args.pairs)
         screen_check()
         beam_path(cb, call_want)
+        say("total", seconds=time.time() - t_start)
         return
     build(sass=args.kernels)
     if args.profile:
@@ -3007,6 +3186,7 @@ def main():
     entered = sorted(_foreign_modules() - before)
     if entered:
         raise AssertionError(f"the run imported {entered[:5]}")
+    say("total", seconds=time.time() - t_start)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": REPLACES[k][0],
          "replaces": REPLACES[k][1], "launches": launches[k],

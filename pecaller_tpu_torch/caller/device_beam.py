@@ -5,11 +5,12 @@ clean_config_probs, :2511-2788 and :2248-2344) vectorized over sites.
 Counterpart of ``pecaller_tpu/caller/device_beam.py``.  Division of
 labor (byte parity preserved by construction):
 
-  * The DEVICE BEAM (f32, ``_beam_chunk``, eager torch on the tensors'
-    device) runs the exact pass-1 search semantics vectorized over
-    sites: per-sample likelihoods, confidence ordering, config expansion
-    x genotypes with the indel-support gates, dedup of configs identical
-    outside the current sample, the 2.3 log-unit prune, and the
+  * The DEVICE BEAM (f32, ``_beam_chunk``, torch on the tensors'
+    device, one device program a chunk in ``DeviceBeam``) runs the
+    exact pass-1 search semantics vectorized over sites: per-sample
+    likelihoods, confidence ordering, config expansion x genotypes with
+    the indel-support gates, dedup of configs identical outside the
+    current sample, the 2.3 log-unit prune, and the
     forced-homozygote reinjection.  Its product is the per-site
     SURVIVING CONFIG SET (a (C_CAP, indiv) genotype matrix in sorted
     order): structure only, no float that reaches an artifact.
@@ -50,6 +51,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..mapper.program import StepProgram
 from .device_model import fill_alpha_prior_np
 from .device_screen import DEPTH_GATE, _tables
 
@@ -493,6 +495,15 @@ def _beam_chunk(reads, ref_int, *, haploid, indiv, c_cap, tabs, threshold):
             final_p.to(f32), hrank, hval)
 
 
+def _packed_chunk(reads, ref_int, **kw):
+    """``_beam_chunk``'s seven results packed into one (S, width) uint8
+    row a site, in ``_fields`` order: the one output of the beam's
+    device program."""
+    S = reads.shape[0]
+    return torch.cat([x.reshape(S, -1).contiguous().view(torch.uint8)
+                      for x in _beam_chunk(reads, ref_int, **kw)], dim=1)
+
+
 # the packed result of a chunk: (name, numpy dtype, columns a site)
 def _fields(C, I):
     return (("n_cfg", np.int32, 1), ("cfgs", np.int8, C * I),
@@ -507,13 +518,18 @@ class DeviceBeam:
     numpy arrays; returns (n_cfg, cfgs, flags, call32, p32, hrank, hval)
     as numpy, as the JAX ``DeviceBeam`` does.
 
-    Every chunk (the last padded with zero counts) is enqueued before
-    any is fetched; each chunk's seven outputs come back as one packed
-    byte row a site through pinned memory."""
+    A chunk (``chunk`` sites, the last padded with zero counts) runs as
+    one ``mapper.program.StepProgram`` (``self.program``, the counterpart
+    of the JAX package's jitted chunk): on a card a CUDA graph captured
+    at the second chunk and replayed after.  Its one output is the
+    chunk's seven results packed into one byte row a site
+    (``chunk_fn``).  Every chunk is enqueued before any is fetched: each
+    replay's row is copied into pinned memory before the next replay
+    overwrites it.  ``graph=False`` runs the chunk eagerly."""
 
     def __init__(self, indiv: int, haploid: bool, theta: float,
                  threshold: float, c_cap: int = 64, chunk: int = 1024,
-                 device=None):
+                 device=None, graph: bool = True):
         self.device = resolve_device(device)
         self.indiv = indiv
         self.haploid = haploid
@@ -533,39 +549,35 @@ class DeviceBeam:
                     ln_theta=np.float32(math.log(theta)))
         self.tabs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
             self.device) for k, v in host.items()}
-
-    def chunk_fn(self, reads, ref_int):
-        """``_beam_chunk`` on device tensors of one chunk."""
-        return _beam_chunk(reads, ref_int, haploid=self.haploid,
-                           indiv=self.indiv, c_cap=self.c_cap,
-                           tabs=self.tabs, threshold=self.threshold)
+        self.fields = _fields(c_cap, indiv)
+        # the step holds the tables, not the beam: no reference cycle
+        # keeps a dropped beam's graph alive until a collection
+        self.chunk_fn = functools.partial(
+            _packed_chunk, haploid=haploid, indiv=indiv, c_cap=c_cap,
+            tabs=self.tabs, threshold=threshold)
+        self.program = StepProgram(self.chunk_fn, self.device, graph=graph)
 
     def __call__(self, reads: np.ndarray, ref_int: np.ndarray):
         n = len(ref_int)
         I, C, K = self.indiv, self.c_cap, self.chunk
         n_pad = -(-n // K) * K
-        dev = self.device
-        pin = dev.type == "cuda"
+        pin = self.device.type == "cuda"
         rd = torch.zeros((n_pad, I, 6), dtype=torch.int16, pin_memory=pin)
         ri = torch.zeros(n_pad, dtype=torch.uint8, pin_memory=pin)
         rd[:n] = torch.from_numpy(np.ascontiguousarray(reads).view(np.int16))
         ri[:n] = torch.from_numpy(np.ascontiguousarray(ref_int,
                                                        dtype=np.uint8))
-        fields = _fields(C, I)
-        width = sum(np.dtype(t).itemsize * k for _, t, k in fields)
+        width = sum(np.dtype(t).itemsize * k for _, t, k in self.fields)
         packed = torch.empty((n_pad, width), dtype=torch.uint8,
                              pin_memory=pin)
         for lo in range(0, n_pad, K):
-            out = self.chunk_fn(rd[lo:lo + K].to(dev, non_blocking=True),
-                                ri[lo:lo + K].to(dev, non_blocking=True))
-            row = torch.cat([x.reshape(K, -1).contiguous().view(torch.uint8)
-                             for x in out], dim=1)
+            row = self.program([(rd[lo:lo + K], ri[lo:lo + K])])[0]
             packed[lo:lo + K].copy_(row, non_blocking=True)
         if pin:
-            torch.cuda.synchronize(dev)
+            torch.cuda.synchronize(self.device)
         host = packed.numpy()[:n]
         res, col = [], 0
-        for _, t, k in fields:
+        for _, t, k in self.fields:
             w = np.dtype(t).itemsize * k
             a = np.ascontiguousarray(host[:, col:col + w]).view(t)
             col += w

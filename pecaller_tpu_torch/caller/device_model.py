@@ -7,12 +7,19 @@ Counterpart of ``pecaller_tpu/caller/device_model.py``.
 fill_sample_like (pecaller.c:2448-2507) with the pass-1 flat alpha
 prior, equal to the exact native engine up to rounding; the byte-exact
 pipeline keeps the native engine.  Sites batch on a mesh's devices in
-``parallel.mesh.sharded_call_step``."""
+``parallel.mesh.sharded_call_step``.  ``site_program`` runs either
+function as one device program an input shape, the counterpart of the
+JAX package's ``@jax.jit``."""
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+
+from ..device import resolve_device
+from ..mapper.program import StepProgram
 
 NO_ALLELES = 6
 MAX_GEN = 14
@@ -70,6 +77,14 @@ _ALPHA_MEAN = np.stack([
     for r in range(4)])      # (4, 14, 6)
 
 
+@functools.lru_cache(maxsize=None)
+def _alpha_mean(device: torch.device) -> torch.Tensor:
+    """``_ALPHA_MEAN`` in f32 on ``device`` (an indexed device), copied
+    there once: a step that a CUDA graph captures may not copy from the
+    host, so the first, eager call of a program fills this."""
+    return torch.from_numpy(_ALPHA_MEAN.astype(np.float32)).to(device)
+
+
 def site_likelihoods(reads, ref_int, norm: float = 1.0):
     """(S, I, 6) counts (int16 bits of uint16, or a wider integer type)
     + (S,) ref -> (S, I, 14) f32 log-likes on the inputs' device.
@@ -81,8 +96,7 @@ def site_likelihoods(reads, ref_int, norm: float = 1.0):
     reads = (reads.to(torch.int32) & 0xFFFF).to(torch.float32)
     tot = reads[..., :5].sum(-1)                      # (S, I)
     scale = (tot.clamp(max=100.0) * norm).clamp(10.0, 1000.0)
-    mean = torch.from_numpy(_ALPHA_MEAN.astype(np.float32)).to(
-        reads.device)[ref_int.long()]                 # (S, 14, 6)
+    mean = _alpha_mean(reads.device)[ref_int.long()]  # (S, 14, 6)
     alpha = torch.ceil(scale[:, :, None, None]
                        * mean[:, None, :, :]).clamp(min=1.0)
     r = reads[:, :, None, :]                          # (S, I, 1, 6)
@@ -104,3 +118,29 @@ def site_posteriors_flat(reads, ref_int, ln_theta: float):
     is_ref_hom = g == ref_int.long()[:, None, None]
     post = like + torch.where(is_ref_hom, 0.0, float(np.float32(ln_theta)))
     return torch.softmax(post, dim=-1)
+
+
+def site_program(fn, device=None, graph: bool = True, **kw):
+    """``fn`` (``site_likelihoods`` or ``site_posteriors_flat``, with its
+    keyword arguments ``kw``) as one ``mapper.program.StepProgram`` an
+    input shape on ``device`` (None: ``cuda:0``): on a card a CUDA graph,
+    captured at a shape's second call and replayed after.  Returns
+    ``step(reads, ref_int)``, which takes host arrays (uint16 counts
+    travel as int16 bits) or tensors and returns the program's output:
+    the next call of the same shape overwrites it, so copy it out
+    first.  ``step.programs`` maps each input shape to its program;
+    ``graph=False`` runs ``fn`` eagerly at every call."""
+    dev = torch.empty(0, device=resolve_device(device)).device
+    _alpha_mean(dev)
+    programs = {}
+
+    def step(reads, ref_int):
+        if isinstance(reads, np.ndarray) and reads.dtype == np.uint16:
+            reads = reads.view(np.int16)
+        key = tuple((tuple(x.shape), str(x.dtype)) for x in (reads, ref_int))
+        if key not in programs:
+            programs[key] = StepProgram(functools.partial(fn, **kw), dev,
+                                        graph=graph)
+        return programs[key]([(reads, ref_int)])[0]
+    step.programs = programs
+    return step

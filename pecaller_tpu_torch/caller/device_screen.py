@@ -66,6 +66,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..mapper.program import StepProgram, capture_stats
 from .device_model import MAX_GEN, NO_ALLELES, fill_alpha_prior_np
 
 # site codes (UNRES is phase-0-internal: "phase 1 must decide")
@@ -275,7 +276,7 @@ def _screen_chunk(reads, ref_int, ctype, *, haploid: bool, ta, tota, a1):
 
     g = torch.arange(max_gen, device=r.device)
     is_ref = g == ref_b[..., None]                    # (S, 1, G)
-    neg = torch.tensor(-np.inf, dtype=torch.float32, device=r.device)
+    neg = float("-inf")
     like_ref = torch.where(is_ref, like, neg).amax(-1)
     # fill_config_probs never expands indel genotypes without >=3
     # supporting reads (pecaller.c:2621-2625: templ -= 1e10 for j in
@@ -309,25 +310,83 @@ def _screen_chunk(reads, ref_int, ctype, *, haploid: bool, ta, tota, a1):
     return codes.to(torch.uint8)
 
 
+class _Stage:
+    """One chunk's pinned staging set: its counts, references and
+    chromosome types going up, its codes coming back, and the events
+    recorded behind its fetch."""
+
+    def __init__(self, chunk: int, indiv: int, pin: bool):
+        self.rd = torch.empty((chunk, indiv, 6), dtype=torch.int16,
+                              pin_memory=pin)
+        self.ri = torch.empty(chunk, dtype=torch.uint8, pin_memory=pin)
+        self.ct = torch.empty(chunk, dtype=torch.uint8, pin_memory=pin)
+        self.out = torch.empty(chunk, dtype=torch.uint8, pin_memory=pin)
+        self.events = []
+        self.span = None                # (lo, m) of the chunk in flight
+
+    def fill(self, reads16, ref_int, ctype, lo: int, m: int, ck: int):
+        """Sites [lo, lo + m) into the first ``m`` rows, zero counts
+        (and reference 0, ctype 0) in the rest of the ``ck``-site
+        bucket."""
+        for buf, src in ((self.rd, reads16), (self.ri, ref_int),
+                         (self.ct, ctype)):
+            h = buf.numpy()
+            h[:m] = src[lo:lo + m]
+            h[m:ck] = 0
+
+    def drain(self, out: np.ndarray) -> None:
+        """Wait for the chunk's codes and copy its first ``m`` to
+        ``out``."""
+        for ev in self.events:
+            ev.synchronize()
+        lo, m = self.span
+        out[lo:lo + m] = self.out.numpy()[:m]
+        self.events, self.span = [], None
+
+
 class CallerScreen:
     """Chunked site screen on one torch device, or over a device mesh.
     Call with host numpy arrays; codes come back as numpy.
 
-    The tables go to each device once.  A chunk (2^21 / indiv sites, a
-    power of two in [2^13, 2^18], bounding the (S, I, 14, 6) f32 working
-    set) goes up from pinned staging buffers and its codes come back
-    with one synchronisation.  With ``mesh`` (``parallel.mesh.make_mesh``)
-    a chunk's sites split into contiguous parts, one a mesh device, and
-    the parts' codes are concatenated: the screen is independent per
-    site.  ``sites`` counts the sites each phase took on the devices.
+    The counterpart of the JAX package's jitted screen.  The tables go
+    to each device once.  A chunk (2^21 / indiv sites, a power of two in
+    [2^13, 2^18], bounding the (S, I, 14, 6) f32 working set) is padded
+    with zero counts into its shape bucket (a power of two from
+    ``MIN_CHUNK`` = 2^10 up to the chunk), and each (phase, bucket) runs
+    as a ``mapper.program.StepProgram`` (``self.programs``): on a card a
+    CUDA graph captured at the key's second call, so that the windows'
+    ``phase1`` calls of varying sizes reuse at most ``log2(chunk) - 9``
+    programs a phase.  Its inputs are the three staged tensors, its
+    output the bucket's uint8 codes.  Up to ``MAX_PEND`` = 3 chunks are
+    in flight, each from a pinned staging set of its own (counts up,
+    codes back); a set is refilled only once the events recorded behind
+    its chunk's fetch have completed.
+
+    All of a screen's programs on one device share one graph pool: they
+    replay one at a time on the device's current stream, and each
+    replay's codes are copied out (a non-blocking copy into the stage's
+    pinned row) before the next replay is enqueued.
+
+    With ``mesh`` (``parallel.mesh.make_mesh``) a bucket's sites split
+    into contiguous parts, one a mesh device, and the parts' codes are
+    concatenated: the screen is independent per site.  Where every mesh
+    device is the same one, one program a key holds every part;
+    otherwise each part is a program of its own on its device and the
+    codes meet in the stage's row.  ``graph=False`` runs the programs'
+    steps eagerly on the same buckets.  ``sites`` counts the sites
+    each phase took on the devices.
     """
 
+    MIN_CHUNK = 1 << 10
+    MAX_PEND = 3
+
     def __init__(self, indiv: int, haploid: bool, chunk: int | None = None,
-                 mesh=None, device=None):
+                 mesh=None, device=None, graph: bool = True):
         self.devices = (mesh.flat if mesh is not None
                         else [resolve_device(device)])
         self.indiv = indiv
         self.haploid = haploid
+        self.graph = graph
         if chunk is None or chunk <= 8192:
             # ~ (1<<21) site*samples per chunk, pow2, within [2^13,2^18]
             c = (1 << 21) // max(indiv, 1)
@@ -340,14 +399,14 @@ class CallerScreen:
                     tota=torch.from_numpy(tota.reshape(n_sc * 4, G)),
                     a1=torch.from_numpy(a1.reshape(n_sc * 4, G)),
                     ptab=torch.from_numpy(_phase0_tables(haploid)))
+        uniq = list(dict.fromkeys(self.devices))
         self._tabs = {d: {k: v.to(d) for k, v in host.items()}
-                      for d in dict.fromkeys(self.devices)}
-        pin = any(d.type == "cuda" for d in self.devices)
-        self._stage = (
-            torch.empty((chunk, indiv, 6), dtype=torch.int16,
-                        pin_memory=pin),
-            torch.empty(chunk, dtype=torch.uint8, pin_memory=pin),
-            torch.empty(chunk, dtype=torch.uint8, pin_memory=pin))
+                      for d in uniq}
+        self._pools = {d: torch.cuda.graph_pool_handle() for d in uniq
+                       if d.type == "cuda"}
+        self._pin = bool(self._pools)
+        self._ring = None
+        self.programs = {}
         self.sites = {"phase0": 0, "phase1": 0}
 
     def _fn(self, phase: str, dev):
@@ -359,30 +418,68 @@ class CallerScreen:
         return functools.partial(_screen_chunk, haploid=self.haploid,
                                  ta=t["ta"], tota=t["tota"], a1=t["a1"])
 
+    def _bucket(self, m: int) -> int:
+        b = self.MIN_CHUNK
+        while b < m:
+            b <<= 1
+        return min(b, self.chunk)
+
+    def _programs_for(self, phase: str, ck: int) -> list:
+        """(program, lo, hi) of each part of a ``ck``-site bucket."""
+        key = (phase, ck)
+        if key not in self.programs:
+            P = len(self.devices)
+            cuts = [ck * p // P for p in range(P + 1)]
+            if len(set(self.devices)) == 1:
+                dev = self.devices[0]
+                fn = self._fn(phase, dev)
+
+                def step(rd, ri, ct):
+                    return torch.cat([fn(rd[a:b], ri[a:b], ct[a:b])
+                                      for a, b in zip(cuts, cuts[1:])])
+                self.programs[key] = [(StepProgram(
+                    step, dev, graph=self.graph,
+                    pool=self._pools.get(dev)), 0, ck)]
+            else:
+                self.programs[key] = [
+                    (StepProgram(self._fn(phase, d), d, graph=self.graph,
+                                 pool=self._pools.get(d)), a, b)
+                    for d, a, b in zip(self.devices, cuts, cuts[1:])]
+        return self.programs[key]
+
+    def program_stats(self) -> dict:
+        """``mapper.program.capture_stats`` over every program."""
+        return capture_stats([p for parts in self.programs.values()
+                              for p, _, _ in parts])
+
     def _run(self, phase, reads, ref_int, ctype) -> np.ndarray:
         """``phase`` over the chunks of host arrays: uint16 counts up as
-        int16 bits from the staging buffers, each chunk in one contiguous
-        part a device, uint8 codes back."""
+        int16 bits from the staging sets, each chunk in its bucket's
+        programs, uint8 codes back, ``MAX_PEND`` chunks in flight."""
         n = len(ref_int)
         out = np.empty(n, dtype=np.uint8)
-        rd_s, ri_s, ct_s = self._stage
-        rd_h, ri_h, ct_h = rd_s.numpy(), ri_s.numpy(), ct_s.numpy()
+        if self._ring is None:
+            self._ring = [_Stage(self.chunk, self.indiv, self._pin)
+                          for _ in range(self.MAX_PEND)]
         reads16 = reads.view(np.int16)
-        fns = [self._fn(phase, d) for d in self.devices]
-        P = len(self.devices)
-        for lo in range(0, n, self.chunk):
+        for k, lo in enumerate(range(0, n, self.chunk)):
+            st = self._ring[k % self.MAX_PEND]
+            if st.span is not None:
+                st.drain(out)
             m = min(n - lo, self.chunk)
-            rd_h[:m] = reads16[lo:lo + m]
-            ri_h[:m] = ref_int[lo:lo + m]
-            ct_h[:m] = ctype[lo:lo + m]
-            cuts = [m * p // P for p in range(P + 1)]
-            codes = [fn(*(t[a:b].to(d, non_blocking=True)
-                          for t in self._stage))
-                     for fn, d, a, b in zip(fns, self.devices, cuts,
-                                            cuts[1:]) if b > a]
-            # the one synchronisation of the chunk: the staging buffers
-            # are free again once the codes are back
-            out[lo:lo + m] = torch.cat([c.cpu() for c in codes]).numpy()
+            ck = self._bucket(m)
+            st.fill(reads16, ref_int, ctype, lo, m, ck)
+            for prog, a, b in self._programs_for(phase, ck):
+                codes = prog([(st.rd[a:b], st.ri[a:b], st.ct[a:b])])[0]
+                st.out[a:b].copy_(codes, non_blocking=True)
+                if prog.device.type == "cuda":
+                    ev = torch.cuda.Event()
+                    ev.record(torch.cuda.current_stream(prog.device))
+                    st.events.append(ev)
+            st.span = (lo, m)
+        for st in self._ring:
+            if st.span is not None:
+                st.drain(out)
         return out
 
     def __call__(self, reads: np.ndarray, ref_int: np.ndarray,

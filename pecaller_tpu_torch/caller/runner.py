@@ -26,6 +26,7 @@ import numpy as np
 
 from ..formats.pileup import read_pileup
 from ..formats.sdx import read_sdx, find_chrom_caller
+from ..mapper.program import capture_stats
 from .device_screen import BAD, EASY, HARD, UNRES, _phase0_tables
 from .device_beam import DeviceBeam, finish_f64
 from .native import load_pecall, pecall_sites
@@ -110,6 +111,9 @@ class CallerConfig:
     # torch device of the site screen; None: the first CUDA device
     # (raises where there is none), "cpu" on request
     device: str | None = None
+    # the screen's (phase, bucket) steps and the beam's chunk as device
+    # programs (mapper/program.py: CUDA graphs on a card); False: eager
+    graph: bool = True
 
 
 def _chrom_type(name: str) -> int:
@@ -367,8 +371,10 @@ def run_caller(cfg: CallerConfig):
     each screen phase took on the device, None without a screen), codes
     (callable sites the screen resolved EASY or BAD, or left HARD),
     native_sites (the sites the exact engine called), beam_sites (the
-    HARD sites the device beam took) and beam_flagged (those it sent
-    back to the exact engine)."""
+    HARD sites the device beam took), beam_flagged (those it sent back
+    to the exact engine) and programs (``mapper.program.capture_stats``
+    of the screen's and the beam's device programs, None without
+    them)."""
     sdx = read_sdx(cfg.sdx_path)
     base = cfg.sdx_path[:cfg.sdx_path.rfind(".")] \
         if ".sdx" in cfg.sdx_path else cfg.sdx_path
@@ -399,13 +405,13 @@ def run_caller(cfg: CallerConfig):
     if cfg.device_screen and not cfg.dump_mode:
         from .device_screen import CallerScreen
         screen = CallerScreen(indiv, cfg.haploid, mesh=cfg.mesh,
-                              device=cfg.device)
+                              device=cfg.device, graph=cfg.graph)
 
     beam = None
     if cfg.device_beam and not cfg.dump_mode and not cfg.use_ped \
             and screen is not None:
         beam = DeviceBeam(indiv, cfg.haploid, cfg.theta, cfg.prob_to_call,
-                          device=screen.devices[0])
+                          device=screen.devices[0], graph=cfg.graph)
 
     ck_path = cfg.out_base + ".cckpt.npz"
     resume_lo = 0
@@ -556,7 +562,10 @@ def run_caller(cfg: CallerConfig):
                 screen_sites=dict(screen.sites) if screen else None,
                 codes={k: tally[k] for k in ("easy", "bad", "hard")},
                 native_sites=tally["native"], beam_sites=tally["beam"],
-                beam_flagged=tally["beam_flagged"])
+                beam_flagged=tally["beam_flagged"],
+                programs=dict(
+                    screen=screen.program_stats() if screen else None,
+                    beam=capture_stats([beam.program]) if beam else None))
 
 
 class _Accum:

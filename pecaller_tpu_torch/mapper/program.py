@@ -21,6 +21,7 @@ traceback (``mapper/device_engine.py``) and ``sharded_map_step``
 
 from __future__ import annotations
 
+import gc
 import time
 
 import numpy as np
@@ -129,6 +130,11 @@ class StepProgram:
     def _capture(self) -> None:
         graph = torch.cuda.CUDAGraph()
         before = dict(sw_cuda.LAUNCHES)
+        # a collection during the capture could free another program's
+        # graph or pinned buffers (objects in reference cycles): calls
+        # that invalidate the capture.  None runs within it.
+        gc_on = gc.isenabled()
+        gc.disable()
         t0 = time.perf_counter()
         try:
             with torch.cuda.graph(graph, pool=self.pool,
@@ -137,6 +143,8 @@ class StepProgram:
                 out = self._run()
                 t1 = time.perf_counter()
         finally:
+            if gc_on:
+                gc.enable()
             self.launches = sw_cuda.launches_since(before)
         self.instantiate_s = time.perf_counter() - t1
         self.capture_s = t1 - t0

@@ -160,26 +160,54 @@ def sharded_map_step(mesh: Mesh, genome_size: int, bisulfite: bool = False,
     return step
 
 
-def sharded_call_step(mesh: Mesh, indiv: int):
+def sharded_call_step(mesh: Mesh, indiv: int, graph: bool = True):
     """The per-site genotype-likelihood step over every shard of
     ``mesh`` (sites are the data axis): step(reads (S, indiv, 6),
     ref_int (S,)) splits the sites into one contiguous block a shard,
     runs ``caller.device_model.site_likelihoods`` on each block's device
     and returns the (S, indiv, 14) f32 likelihoods concatenated on the
-    first shard's device."""
-    from ..caller.device_model import site_likelihoods
-    devs = mesh.flat
+    first shard's device.
 
-    def step(reads, ref_int):
-        reads, ref_int = torch.as_tensor(reads), torch.as_tensor(ref_int)
+    With ``graph`` each input shape runs as device programs (the
+    counterpart of the reference's ``jax.jit(shard_map(local_step))``;
+    ``caller.device_model.site_program``): where every shard is on one
+    device, one program holds every block and the concatenation, and
+    the result is its output, which the next call of that shape
+    overwrites; over several devices, one program a shard and shape,
+    the blocks gathered outside the graphs.  ``step.programs`` maps
+    each input shape (with several devices: each (shard, shape)) to its
+    program.  ``graph=False`` runs the blocks eagerly."""
+    from ..caller.device_model import site_likelihoods, site_program
+    devs = mesh.flat
+    P = len(devs)
+
+    def check(reads):
         if reads.shape[1] != indiv:
             raise ValueError(f"reads carry {reads.shape[1]} samples, the "
                              f"step {indiv}")
-        S, P = reads.shape[0], len(devs)
-        cuts = [S * p // P for p in range(P + 1)]
+        S = reads.shape[0]
+        return [S * p // P for p in range(P + 1)]
+
+    def eager(reads, ref_int):
+        reads, ref_int = torch.as_tensor(reads), torch.as_tensor(ref_int)
+        cuts = check(reads)
         return torch.cat([
             site_likelihoods(reads[a:b].to(d), ref_int[a:b].to(d)).to(
                 devs[0]) for d, a, b in zip(devs, cuts, cuts[1:])])
+    if not graph:
+        return eager
+    if len(set(devs)) == 1:
+        return site_program(eager, devs[0])
+    shards = [site_program(site_likelihoods, d) for d in devs]
+
+    def step(reads, ref_int):
+        cuts = check(reads)
+        out = torch.cat([fn(reads[a:b], ref_int[a:b]).to(devs[0])
+                         for fn, a, b in zip(shards, cuts, cuts[1:])])
+        step.programs.update({(s, k): p for s, fn in enumerate(shards)
+                              for k, p in fn.programs.items()})
+        return out
+    step.programs = {}
     return step
 
 

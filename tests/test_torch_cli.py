@@ -29,7 +29,7 @@ from pecaller_tpu.cli import main as jax_main
 from pecaller_tpu_torch.cli import main as port_main
 from util import GOLDEN
 
-PORT_ONLY = {"torch_device": None, "device": None}
+PORT_ONLY = {"torch_device": None, "device": None, "graph": True}
 
 
 def _read(path):

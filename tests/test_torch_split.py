@@ -150,6 +150,27 @@ def test_split_engine_matches_jax(data, name, device_seeds):
 
 
 @pytest.mark.parametrize("name", list(ENGINES))
+def test_host_and_device_seeds_agree(data, name):
+    """The split engine with host seeds against the same engine with
+    device seeds, both on the CPU: codes, m1 and m2 of every batch, every
+    traceback's insertion records, final_pileup, the insertion records
+    and the mate counts bitwise.  chip_smoke.py's phase 7 relies on it:
+    there the host-seed engine runs only the first batches, held to the
+    device-seed gate run's outputs on those batches."""
+    base, f1, f2, kw, bs = ENGINES[name]
+    sdx, genome, index = load_genome(data, base)
+    engs = [DeviceMapperEngine(sdx, genome, index, device=CPU,
+                               device_seeds=s, **kw) for s in (False, True)]
+    seen = [record_split(e) for e in engs]
+    _run(engs, batches(data, f1, f2, bs), kw["paired"])
+    assert seen[0]["rec"] and same_records(seen[0]["rec"], seen[1]["rec"])
+    assert np.array_equal(engs[0].final_pileup(), engs[1].final_pileup())
+    assert sorted(engs[0].ins_records) == sorted(engs[1].ins_records)
+    assert np.array_equal(engs[0].stats.mate_counts,
+                          engs[1].stats.mate_counts)
+
+
+@pytest.mark.parametrize("name", list(ENGINES))
 def test_split_graph_matches_eager_and_jax(data, name):
     """Device seeds, the engine's seed steps and tracebacks as programs
     (graph=True) against the same engine with graph=False and against
