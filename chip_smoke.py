@@ -122,13 +122,21 @@ Phases (each prints one line; any failure raises and exits non-zero):
   10. genome-sharded octile: phase 6's data; plan_shards(sdx, 2) and
      build_octile_shards timed, each shard's table bytes; the
      OctileShardedEngine with both shards on cuda:0, built directly as
-     phase 5 builds v1, each batch's step (both shards and their seven
-     collectives) one graph a shape key, through map_files: all five
-     artifacts byte-equal to phase 6's host oracle, K1 and K2 launched;
-     graph_vs_eager against the engine on the same shards with
-     graph=False (the mesh's dispatch and fetch ms a batch among its
-     figures); fallbacks, re-walked ties, peak device memory; what hg38
-     would need (at least 12 shards)
+     phase 5 builds v1, each batch's step a MeshProgram (each shard's
+     step cut at its 13 collectives into 14 segments, a CUDA graph a
+     shard a segment, a graph a card a reduction, the output gathered
+     on the first card), through map_files: all five artifacts
+     byte-equal to phase 6's host oracle, K1 and K2 launched, the
+     program's layout (segments a shard, graphs and copies a batch,
+     pool bytes a card); graph_vs_eager against the engine on the same
+     shards with graph=False (lockstep; the mesh's dispatch and fetch
+     ms a batch among its figures); fallbacks, re-walked ties, peak
+     device memory; what hg38 would need (at least 12 shards).  Where
+     the machine has two cards, the same shards on cuda:0 and cuda:1:
+     the same gate, the first 3 batches' raw outputs bitwise to the
+     one-card program's, reads/s, host and replay ms, each card's peak
+     memory; with one card the genome_mesh_cards line says the
+     two-card run did not happen
   11. multi-process: two processes joined by init_distributed (gloo on
      localhost), both on cuda:0; run_mapper_distributed on phase 4's
      reads split into two fastq pairs (the parts' pileups merge to the
@@ -151,10 +159,14 @@ Phases (each prints one line; any failure raises and exits non-zero):
      events); peak memory.  The beam's chunk is a device program (a
      CUDA graph) throughout, the cohort's too
   13. the sharded steps: sharded_map_step on two shards of cuda:0 at
-     8,192 lanes of the v1 shape (K3 on each shard), the whole step one
-     graph, called eagerly, captured and replayed: score, bk, bi and the
-     reduce-scattered pileup blocks bitwise against the one-device plain
-     path and against the step with graph=False, bisulfite off and on;
+     8,192 lanes of the v1 shape (K3 on each shard), a MeshProgram (a
+     graph a shard before and after the reduce-scatter, a graph a
+     shard's block sum, the gather), called eagerly, captured and
+     replayed: score, bk, bi and the reduce-scattered pileup blocks
+     bitwise against the one-device plain path and against the step
+     with graph=False, bisulfite off and on; where the machine has two
+     cards, the same on cuda:0 and cuda:1, graphed and with
+     graph=False, bitwise to one card;
      sharded_call_step with graph=False and graphed (one program a
      shape holding both shards: called eagerly, captured, replayed),
      each bitwise to site_likelihoods on one device, with the step
@@ -1035,7 +1047,14 @@ def _batches(n_pairs, data=DATA):
                              batch_size=BATCH, max_reads=n_pairs).batches())
 
 
-def _rates(eng, batches, dev, passes=3):
+def _sync():
+    """Wait for every card (a mesh's shards may sit on several)."""
+    import torch
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _rates(eng, batches, passes=3):
     """Reads/s of passes over the batches (the runner's 2 * group_k + 1
     in flight): the median of ``passes`` after a warm pass, or the warm
     pass alone when it takes over 30 s."""
@@ -1062,7 +1081,7 @@ def _rates(eng, batches, dev, passes=3):
                 resolve()
         while pend:
             resolve()
-        torch.cuda.synchronize(dev)
+        _sync()
         return reads / (time.time() - t), time.time() - t
 
     warm, secs = one_pass()
@@ -1094,23 +1113,26 @@ def _raw_outputs(eng, batches):
 
 
 def _replay_ms(eng, dev, reps=5):
-    """Device ms of one batch's graph (a mesh: every shard's, in shard
-    order) by CUDA events over ``reps`` bare replays: the programs with
-    the most calls, that is the main shape key's.  The replays add into
-    the pileup counters and count no launch: run after the gates."""
+    """Device ms of one batch's graph (a reads mesh: every shard's, in
+    shard order; a genome mesh: its program's graphs and copies on every
+    card, timed on the first, which gathers the output last) by CUDA
+    events over ``reps`` bare replays: the programs with the most calls,
+    that is the main shape key's.  The replays add into the pileup
+    counters and count no launch: run after the gates."""
     import torch
     progs = [p for p in eng.programs if p.capture_s is not None]
     most = max(p.calls for p in progs)
     progs = [p for p in progs if p.calls == most]
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize(dev)
-    start.record()
-    for _ in range(reps):
-        for p in progs:
-            p._graph.replay()
-    end.record()
-    torch.cuda.synchronize(dev)
+    _sync()
+    with torch.cuda.device(dev):
+        start.record()
+        for _ in range(reps):
+            for p in progs:
+                p.replay()
+        end.record()
+    _sync()
     return start.elapsed_time(end) / reps
 
 
@@ -1144,7 +1166,7 @@ def graph_vs_eager(graphed, eager, batches, dev, n_check=3):
             mt.update(dispatch_s=0.0, fetch_s=0.0, batches=0)
         resident = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        rates, how, per_batch = _rates(eng, batches, dev,
+        rates, how, per_batch = _rates(eng, batches,
                                        1 if name == "eager" else 3)
         r = dict(reads_per_s=rates[len(rates) // 2],
                  reads_per_s_passes=rates, spread=_spread(rates),
@@ -1243,7 +1265,7 @@ def main_path(n_pairs):
         max_dist=500, nthreads=os.cpu_count() or 2)
     cmp = graph_vs_eager(eng, eager, batches, dev)
     del eager
-    rates3, how3, per_batch3 = _rates(eng3, batches, dev)
+    rates3, how3, per_batch3 = _rates(eng3, batches)
     say("main_path", pairs=n_pairs, batch=BATCH, byte_equal=sorted(want),
         launches=launches, reads_per_s=cmp["graph"]["reads_per_s"],
         graph=cmp.pop("graph"), eager=cmp.pop("eager"), **cmp,
@@ -2464,15 +2486,32 @@ def reads_mesh(n_pairs, host_dir, cb, call_want):
     return launches
 
 
+def _mesh_program(eng):
+    """The layout and capture figures of a genome-mesh engine's main
+    program (the shape key with the most calls)."""
+    prog = max(eng.programs, key=lambda p: p.calls)
+    return dict(devices=[str(d) for d in prog.by_device],
+                collectives=len(prog.collectives),
+                segments_a_shard=prog.segments,
+                graphs_a_batch=prog.n_graphs, copies_a_batch=prog.n_copies,
+                capture_s=prog.capture_s, instantiate_s=prog.instantiate_s,
+                pool_bytes_by_device=prog.pool_bytes_by_device)
+
+
 def genome_mesh(n_pairs, host_dir):
     """Phase 10: the genome-sharded octile engine on phase 6's data, two
     genome shards on cuda:0, built directly (the runner has no route to
     it): the shard plan and octile builds timed, each shard's table
-    bytes; `map_files` with phase 6's command line, each batch's step
-    (both shards and their collectives) one graph a shape key, against
-    phase 6's host oracle, all five artifacts byte-equal; then
-    graph_vs_eager against the engine on the same shards with
-    graph=False.  Returns K1/K2 launches of the gate run."""
+    bytes; `map_files` with phase 6's command line, each batch's step a
+    MeshProgram (a CUDA graph a shard a segment between its collectives,
+    a graph a card a collective's reduction, the output gathered on the
+    first card), against phase 6's host oracle, all five artifacts
+    byte-equal; then graph_vs_eager against the engine on the same
+    shards with graph=False (lockstep).  Where the machine has two
+    cards, the same shards on cuda:0 and cuda:1: the same gate, the raw
+    outputs of the first batches bitwise to the one-card program's,
+    reads/s and each card's peak memory; with one card a line says that
+    run did not happen.  Returns K1/K2 launches of the gate run."""
     import numpy as np
     import torch
     from pecaller_tpu_torch import cli
@@ -2503,9 +2542,9 @@ def genome_mesh(n_pairs, host_dir):
     cfg = cli.parse_pemapper(_argv(d, n_pairs, True, MID))
     torch.cuda.reset_peak_memory_stats(dev)
 
-    def engine(graph):
+    def engine(graph, devs=(dev, dev)):
         return OctileShardedEngine(
-            sdx, genome, index, make_mesh(1, 2, [dev, dev]), plan=plan,
+            sdx, genome, index, make_mesh(1, 2, list(devs)), plan=plan,
             shards=shards, bisulfite=cfg.bisulfite, min_align=cfg.min_align,
             min_dist=cfg.min_dist, max_dist=cfg.max_dist, paired=cfg.paired,
             nthreads=cfg.nthreads, graph=graph)
@@ -2526,10 +2565,22 @@ def genome_mesh(n_pairs, host_dir):
     _gate("genome-sharded octile", _artifacts(d), want)
     n_fallback, n_tiefix, n_cap = (eng.n_fallback, eng.n_tiefix,
                                    eng.n_cap_fallback)
+    program = _mesh_program(eng)
+    if program["segments_a_shard"] != 14 or program["copies_a_batch"]:
+        raise AssertionError(f"the one-card program's layout: {program}")
     eager = engine(False)
-    del shards
-    cmp = graph_vs_eager(eng, eager, _batches(n_pairs, MID), dev)
-    del eng, eager
+    batches = _batches(n_pairs, MID)
+    cmp = graph_vs_eager(eng, eager, batches, dev)
+    del eager
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        two_cards = _genome_mesh_cards(engine, eng, batches, want, n_pairs,
+                                       sdx, genome)
+    else:
+        two_cards = dict(ran=False, why="the machine has one card: the "
+                         "two-card run did not happen")
+    del eng, shards
     torch.cuda.empty_cache()
     per_base = sum(table_bytes) / sdx.genome_size
     say("genome_mesh", shards=2, devices=[str(dev)] * 2,
@@ -2537,6 +2588,7 @@ def genome_mesh(n_pairs, host_dir):
         shard_bases_idx=[int(x) for x in plan.bases_idx],
         shard_cover_idx=[int(x) for x in plan.cover_idx],
         table_bytes=table_bytes, byte_equal=sorted(want), launches=launches,
+        program=program,
         reads_per_s=cmp["graph"]["reads_per_s"], graph=cmp.pop("graph"),
         eager=cmp.pop("eager"), **cmp, n_fallback=n_fallback,
         n_tiefix=n_tiefix, n_cap_fallback=n_cap,
@@ -2549,8 +2601,69 @@ def genome_mesh(n_pairs, host_dir):
             table_bytes_at_this_runs_bytes_per_base=int(per_base * HG38),
             scaling_md_count="~130 GB (pos 99 + nibbles 25 + starts 8)",
             note="beyond one 80 GB card and beyond a smoke's host build"),
-        scaling="every shard on one card: correctness, not scaling")
+        cards=cards)
+    say("genome_mesh_cards", cards=cards, **two_cards)
     return launches
+
+
+def _genome_mesh_cards(engine, one, batches, want, n_pairs, sdx, genome):
+    """Phase 10 on two cards: the same shards on cuda:0 and cuda:1
+    (``engine(True, cards)``), `map_files` gated against the host oracle
+    as on one card, the raw outputs of the first 3 batches bitwise to
+    the one-card program ``one``'s, then reads/s (median of 3 after a
+    warm pass), host ms a batch, one replay's device ms and each card's
+    peak memory above what it held before (cuda:0 keeps the one-card
+    engine)."""
+    import numpy as np
+    import torch
+    from pecaller_tpu_torch import cli
+    from pecaller_tpu_torch.mapper.runner import map_files
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    # cuda:0 still holds the one-card engine
+    resident = {c: torch.cuda.memory_allocated(c) for c in cards}
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    t0 = time.time()
+    eng = engine(True, cards)
+    _sync()
+    t_upload = time.time() - t0
+    d = _run_dir("gshard_cards", MID)
+    cfg = cli.parse_pemapper(_argv(d, n_pairs, True, MID))
+    t0 = time.time()
+    map_files(cfg, eng, sdx, genome)
+    _sync()
+    t_run = time.time() - t0
+    _gate("genome-sharded octile on two cards", _artifacts(d), want)
+    got = _raw_outputs(eng, batches[:3])
+    ref = _raw_outputs(one, batches[:3])
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"batch {i}: the two-card program differs "
+                                 "from the one-card program")
+    program = _mesh_program(eng)
+    if program["copies_a_batch"] != 2 * 13 + 1:
+        raise AssertionError(f"the two-card program's layout: {program}")
+    eng.mesh_timing.update(dispatch_s=0.0, fetch_s=0.0, batches=0)
+    rates, how, per_batch = _rates(eng, batches)
+    mt = eng.mesh_timing
+    out = dict(ran=True, devices=[str(c) for c in cards],
+               byte_equal=sorted(want), bitwise_to_one_card_batches=3,
+               reads_per_s=rates[len(rates) // 2], reads_per_s_passes=rates,
+               spread=_spread(rates), passes=how,
+               host_ms_per_batch={k: 1e3 * v for k, v in per_batch.items()},
+               mesh_dispatch_ms_per_batch=1e3 * mt["dispatch_s"]
+               / mt["batches"],
+               mesh_fetch_ms_per_batch=1e3 * mt["fetch_s"] / mt["batches"],
+               replay_ms_per_batch=_replay_ms(eng, cards[0]),
+               program=program,
+               peak_above_resident={
+                   str(c): torch.cuda.max_memory_allocated(c) - resident[c]
+                   for c in cards},
+               seconds=dict(engine_build=round(t_upload, 1),
+                            device_run=round(t_run, 1)))
+    del eng
+    torch.cuda.empty_cache()
+    return out
 
 
 _PART_SCRIPT = """
@@ -2986,12 +3099,14 @@ CALL_STEP_SITES = 1 << 16
 
 def sharded_steps():
     """Phase 13: sharded_map_step on two shards of cuda:0 at 8,192 lanes
-    of the v1 shape (N 160, M 112, raw bytes), graphed (the whole step
-    one program: called on lanes a, b, a, so the second call captures
-    and replays and the third replays), every output bitwise against
-    the one-device plain path (sw_align_device, the traceback and
-    pileup_scatter on cuda:0) over phase 4's genome size on lanes a and
-    against the step with graph=False on lanes b, bisulfite off and on;
+    of the v1 shape (N 160, M 112, raw bytes), graphed (one MeshProgram:
+    called on lanes a, b, a, so the second call captures and replays
+    and the third replays), every output bitwise against the one-device
+    plain path (sw_align_device, the traceback and pileup_scatter on
+    cuda:0) over phase 4's genome size on lanes a and against the step
+    with graph=False on lanes b, bisulfite off and on; where the
+    machine has two cards the same over cuda:0 and cuda:1, graphed and
+    with graph=False, against the same references;
     then sharded_call_step, with graph=False and graphed (called three
     times: eagerly, captured, replayed), each bitwise to site_likelihoods
     on one device.
@@ -3020,6 +3135,15 @@ def sharded_steps():
             if not torch.equal(a, b):
                 raise AssertionError(f"sharded_map_step ({name}) {what} "
                                      f"differs (bisulfite {bis})")
+
+    def call(step, x):
+        t0 = time.time()
+        score, bk, bi, blocks = step(*x)
+        _sync()
+        return (score, bk, bi, torch.cat([b.to(dev) for b in blocks])), \
+            time.time() - t0
+    cards = torch.cuda.device_count()
+    two = dict(cards=cards)
     for bis in (False, True):
         a, b = lanes(1300 + bis), lanes(1310 + bis)
         ps, pk, pi = sw.sw_align_device(*a, bisulfite=bis)
@@ -3031,32 +3155,56 @@ def sharded_steps():
             torch.zeros((gs_pad, 6), dtype=torch.int16, device=dev))
         if not plain.any():
             raise AssertionError("sharded_map_step added no event")
+        want_a = (ps, pk, pi, plain)
         eager = sharded_map_step(mesh, gs, bisulfite=bis, graph=False)
-        t0 = time.time()
-        sc, kb, ib, bl = eager(*b)
-        torch.cuda.synchronize(dev)
-        t_eager = time.time() - t0
-        want_b = (sc, kb, ib, torch.cat(bl))
+        want_b, t_eager = call(eager, b)
         step = sharded_map_step(mesh, gs, bisulfite=bis)
         k0 = sw_cuda.LAUNCHES["sw_align"]
         secs = []
-        for name, x, want in (("eager call", a, (ps, pk, pi, plain)),
+        for name, x, want in (("eager call", a, want_a),
                               ("captured", b, want_b),
-                              ("replayed", a, (ps, pk, pi, plain))):
-            t0 = time.time()
-            score, bk, bi, blocks = step(*x)
-            torch.cuda.synchronize(dev)
-            secs.append(time.time() - t0)
-            check(name, (score, bk, bi, torch.cat(blocks)), want, bis)
+                              ("replayed", a, want_a)):
+            got, t = call(step, x)
+            secs.append(t)
+            check(name, got, want, bis)
         launches += sw_cuda.LAUNCHES["sw_align"] - k0
         prog, = step.programs.values()
-        out["bisulfite" if bis else "plain"] = dict(
+        key = "bisulfite" if bis else "plain"
+        out[key] = dict(
             step_s=dict(zip(("eager_call", "capture_and_replay", "replay"),
                             secs)),
             graph_false_step_s=t_eager, capture_s=prog.capture_s,
-            instantiate_s=prog.instantiate_s, pool_bytes=prog.pool_bytes,
+            instantiate_s=prog.instantiate_s,
+            pool_bytes_by_device=prog.pool_bytes_by_device,
+            segments_a_shard=prog.segments, graphs_a_call=prog.n_graphs,
             events=int(plain.long().sum()))
+        if cards >= 2:
+            # the same step over two cards, bitwise to one card
+            mesh2 = make_mesh(2, 1, [torch.device("cuda", i)
+                                     for i in range(2)])
+            step2 = sharded_map_step(mesh2, gs, bisulfite=bis)
+            secs = []
+            for name, x, want in (("two cards, eager call", a, want_a),
+                                  ("two cards, captured", b, want_b),
+                                  ("two cards, replayed", a, want_a)):
+                got, t = call(step2, x)
+                secs.append(t)
+                check(name, got, want, bis)
+            got, _ = call(sharded_map_step(mesh2, gs, bisulfite=bis,
+                                           graph=False), b)
+            check("two cards, graph=False", got, want_b, bis)
+            prog2, = step2.programs.values()
+            two[key] = dict(
+                bitwise_to_one_card=True,
+                step_s=dict(zip(("eager_call", "capture_and_replay",
+                                 "replay"), secs)),
+                pool_bytes_by_device=prog2.pool_bytes_by_device,
+                graphs_a_call=prog2.n_graphs, copies_a_call=prog2.n_copies)
+            del step2, prog2
         del step, eager, prog
+    if cards < 2:
+        two.update(ran=False, why="the machine has one card: the two-card "
+                   "run did not happen")
     rng = np.random.default_rng(13)
     reads = torch.from_numpy(rng.integers(
         0, 400, (CALL_STEP_SITES, 3, 6)).astype(np.int16)).to(dev)
@@ -3092,7 +3240,7 @@ def sharded_steps():
         call_program=dict(capture_s=prog.capture_s,
                           instantiate_s=prog.instantiate_s,
                           pool_bytes=prog.pool_bytes),
-        seconds=time.time() - t_phase)
+        map_two_cards=two, seconds=time.time() - t_phase)
     return launches
 
 

@@ -447,7 +447,8 @@ def prep_reads_dev(seqs, lens):
 def run_alone(gen):
     """Run a step generator (``FusedStep2.run``) that meets no collective
     to its end and return its value.  A step with a ``comm`` yields at
-    every collective and runs under ``parallel.mesh.lockstep``."""
+    every collective and runs under ``mapper.program.MeshProgram`` or
+    ``parallel.mesh.lockstep``."""
     try:
         req = next(gen)
     except StopIteration as stop:
@@ -1441,8 +1442,8 @@ class FusedMapperEngine2(MapperEngine):
 
     @property
     def programs(self) -> list:
-        """Every StepProgram the engine has built (on a mesh, each
-        shard's)."""
+        """Every program the engine has built (on a reads mesh, each
+        shard's StepProgram; on a genome mesh, a MeshProgram a key)."""
         return ([p for st in self._steps.values()
                  for p in getattr(st, "programs", ())]
                 + list(self._programs.values()))

@@ -14,17 +14,19 @@ chaining):
   * winner traceback + pileup add stay OWNER-LOCAL; the pileup stays
     genome-sharded until artifact download
 
-The shards' steps run in lockstep in this process (``parallel.mesh``:
-one generator a shard, reduced in shard order).  Reads are replicated
-over the genome axis (a batch is ~4 MB; the index is the heavy
-operand).  The public engine API (map_batch_async / resolve /
-final_pileup) is that of FusedMapperEngine2.  A batch's step, every
-shard's and the collectives between them, is one ``StepProgram`` a
-shape key (``mapper/program.py``; the counterpart of the reference's
-``jax.jit(shard_map(local))``): where every shard sits on one device,
-the lockstep's reductions are device ops on it, so one CUDA graph holds
-the whole step.  One graph cannot hold reductions across devices: a
-mesh over several devices runs eagerly (``graph=False``) or raises.
+The shards' steps run together in this process, one generator a shard
+that yields at each collective.  Reads are replicated over the genome
+axis (a batch is ~4 MB; the index is the heavy operand).  The public
+engine API (map_batch_async / resolve / final_pileup) is that of
+FusedMapperEngine2.  A batch's step, every shard's and the collectives
+between them, is one ``MeshProgram`` a shape key
+(``mapper/program.py``; the counterpart of the reference's
+``jax.jit(shard_map(local))``) over any set of devices: each shard's
+step cut at its 13 collectives into 14 segments, each segment a CUDA
+graph on its shard's device, each collective reduced on every device
+the shards use (a graph of its own), the stacked output gathered on the
+first device.  ``graph=False`` runs the shards eagerly under
+``parallel.mesh.lockstep``.
 
 One divergence from the reference: where the shards' merged walk-tie
 records would pass ``tie_cap`` the reference raises; here the step
@@ -45,7 +47,7 @@ from .device_map2 import (INS_CAP, SCATTER_PAD, TIE_CAP, DeviceState,
                           FusedMapperEngine2, FusedStep2, OctileDeviceIndex)
 from .engine import MapperEngine
 from .host_prep import pack_genome
-from .program import StepProgram
+from .program import MeshProgram, StepProgram
 
 
 def sharded_genome_step(states: list, **step_kw):
@@ -55,10 +57,17 @@ def sharded_genome_step(states: list, **step_kw):
     once to each other device the shards use (reads are replicated over
     the genome axis), the shards run in lockstep; returns their output
     blocks stacked, (G, rows, 6) on the first shard's device.
-    ``step.steps`` lists the shards' FusedStep2."""
+    ``step.steps`` lists the shards' FusedStep2, ``step.shards`` their
+    steps as a ``MeshProgram`` takes them (``(output block, None)``
+    returned)."""
     G = len(states)
     steps = [FusedStep2(st.dnbr, comm=ShardComm(g, G), **step_kw)
              for g, st in enumerate(states)]
+
+    def shard(fn, st):
+        def run(*ins):
+            return (yield from fn.run(st, *ins)), None
+        return run
 
     def step(*ins):
         ups, gens = {ins[0].device: ins}, []
@@ -70,6 +79,7 @@ def sharded_genome_step(states: list, **step_kw):
         outs = lockstep(gens)
         return torch.stack([o.to(outs[0].device) for o in outs])
     step.steps = steps
+    step.shards = [shard(fn, st) for fn, st in zip(steps, states)]
     return step
 
 
@@ -88,14 +98,15 @@ class OctileShardedEngine(FusedMapperEngine2):
     (``OctileDeviceIndex``).
 
     Each shape key's step, all shards and their collectives, runs as one
-    ``StepProgram`` with one fetch of the stacked blocks: on a card a
-    CUDA graph captured at the key's second batch (``graph``), as
-    FusedMapperEngine2's.  ``graph=False`` runs the shards' steps
-    eagerly.  A mesh over more than one device takes ``graph=False``:
-    with ``graph=True`` it raises ValueError.  ``mesh_timing`` sums the
-    host seconds of the input copies and the replay (or the eager
-    step's enqueue: dispatch) and of waiting for the one copy back
-    (fetch).  No batches are grouped."""
+    ``MeshProgram`` over the mesh's devices with one fetch of the
+    stacked blocks from the first: on a card a CUDA graph a shard a
+    segment and a graph a device a collective, captured at the key's
+    second batch (``graph``).  ``graph=False`` runs the shards' steps
+    eagerly under ``lockstep`` (a ``StepProgram`` that captures
+    nothing).  ``mesh_timing`` sums the host seconds of the input
+    copies and the replays (or the eager step's enqueue: dispatch) and
+    of waiting for the one copy back (fetch).  No batches are
+    grouped."""
 
     def __init__(self, sdx: SdxInfo, genome: np.ndarray, index: SeedIndex,
                  mesh, plan: ShardPlan | None = None, shards=None,
@@ -104,11 +115,6 @@ class OctileShardedEngine(FusedMapperEngine2):
         if mesh.shape["reads"] != 1:
             raise ValueError("the genome-sharded engine takes a mesh of one "
                              "reads row")
-        if graph and len(set(mesh.flat)) > 1:
-            raise ValueError(
-                f"a genome mesh over {len(set(mesh.flat))} devices cannot "
-                "run as one CUDA graph (its collectives reduce across the "
-                "devices): pass graph=False to run it eagerly")
         MapperEngine.__init__(self, sdx, genome, index, **kwargs)
         self._mesh = mesh
         self._n_sh = 1                  # reads axis unsharded here
@@ -170,15 +176,18 @@ class OctileShardedEngine(FusedMapperEngine2):
 
     def _program_for(self, K, key):
         if (K, key) not in self._programs:
-            self._programs[K, key] = StepProgram(
-                self._step_for(*key), self.device, group=K,
-                graph=self._graph)
+            step = self._step_for(*key)
+            self._programs[K, key] = (
+                MeshProgram(step.shards, self._mesh.flat, torch.stack)
+                if self._graph else
+                StepProgram(step, self.device, group=K, graph=False))
         return self._programs[K, key]
 
     def _mesh_outputs(self, h, ins):
         """The batch's step over every shard as one program: its stacked
-        blocks, fetched in one copy."""
-        return [self._program_for(1, h["key"])([ins])[0]]
+        blocks on the first device, fetched in one copy."""
+        prog = self._program_for(1, h["key"])
+        return [prog(ins)[0] if self._graph else prog([ins])[0]]
 
     def _blocks(self, h):
         """Packed rows are replicated (m_u was summed over the shards);

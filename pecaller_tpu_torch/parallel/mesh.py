@@ -14,12 +14,17 @@ devices:
   one shard) and adds into its own pileup partial; the partials are
   summed once, at pileup download.  No collective inside the step.
 * genome axis (mapper/gshard.py): each shard's step is a generator that
-  yields at its collectives (``ShardComm``); ``lockstep`` advances the
-  shards together and reduces in shard order on the first shard's
-  device.  Deterministic, no threads, no process group.
+  yields at its collectives (``ShardComm``).  ``mapper.program.
+  MeshProgram`` runs the shards segment by segment over any set of
+  devices, each collective reduced on every device the shards use
+  (``reduce_collective``, in shard order), the segments and reductions
+  CUDA graphs on a card; ``lockstep`` (``graph=False``) advances them
+  eagerly and reduces on the first shard's device.  Deterministic, no
+  threads, no process group.
 * ``sharded_map_step``: the SW batch (K3 on the card) and its
-  traceback on each shard's lanes, the partial pileups summed in shard
-  order and handed back as one row block a shard (the reduce-scatter).
+  traceback on each shard's lanes, the partial pileups reduce-scattered
+  (each device sums its shards' row blocks of every partial in shard
+  order), one row block a shard.
 * ``sharded_call_step``: sites split into one contiguous block a shard,
   ``site_likelihoods`` on each, no collective beyond the final gather.
 """
@@ -81,66 +86,51 @@ def sharded_map_step(mesh: Mesh, genome_size: int, bisulfite: bool = False,
     ``ops.sw_cuda.sw_align`` (K3 on the card, the plain version on the
     CPU), walks them back with ``sw_traceback_device`` and adds the
     events, at their window rows, into a (gs_pad, 6) partial pileup of
-    uint16 bits (``pileup_scatter``).  The partials are summed in shard
-    order on the first shard's device (wrapping mod 2^16) and split into
-    row blocks, the counterpart of ``psum_scatter``.  B not divisible by
-    the number of shards raises ValueError.
+    uint16 bits (``pileup_scatter``).  The partials are reduce-scattered
+    (``ShardComm.psum_scatter``, the counterpart of the reference's
+    ``psum_scatter``): each device sums row block s of every partial in
+    shard order (wrapping mod 2^16) for each shard s it holds, so no
+    device holds more than its shards' partials and blocks.  B not
+    divisible by the number of shards raises ValueError.
 
-    With ``graph`` the whole step of each input shape, every shard and
-    the shard-order sum, runs as one ``StepProgram`` (the counterpart of
-    the reference's ``jax.jit(shard_map(local_step))``; on a card a CUDA
-    graph captured at the shape's second call): the outputs are then
-    views of the program's output, which the next call overwrites, and
-    ``step.programs`` maps each input shape to its program.  One graph
-    cannot hold a mesh over several devices: there ``graph=True`` raises
-    ValueError and ``graph=False`` runs the shards eagerly."""
-    from ..mapper.program import StepProgram
+    Each input shape runs as one ``mapper.program.MeshProgram`` (the
+    counterpart of the reference's ``jax.jit(shard_map(local_step))``):
+    with ``graph`` on a card each shard's segment before and after the
+    reduce-scatter, each device's reduction and the gather of score, bk
+    and bi are CUDA graphs, captured at the shape's second call; the
+    outputs are then the program's, which the next call overwrites.
+    ``graph=False`` runs the same segments and reductions eagerly.
+    ``step.programs`` maps each input shape to its program."""
+    from ..mapper.program import MeshProgram
     from ..ops import sw as psw
     from ..ops import sw_cuda
     devs = mesh.flat
     n = len(devs)
     gs_pad = -(-genome_size // n) * n
-    if graph and len(set(devs)) > 1:
-        raise ValueError(
-            f"a mesh over {len(set(devs))} devices cannot run as one CUDA "
-            "graph: pass graph=False to run its shards eagerly")
 
-    def eager(refs, blens, reads, rlens):
-        ins = [torch.as_tensor(x) for x in (refs, blens, reads, rlens)]
-        B = ins[0].shape[0]
-        if B % n:
-            raise ValueError(f"B={B} must divide by n_shards={n}")
-        bl = B // n
-        outs, parts = [], []
-        for s, dev in enumerate(devs):
-            r, bln, rd, rl = (x[s * bl:(s + 1) * bl].to(dev) for x in ins)
+    def shard(s):
+        comm = ShardComm(s, n)
+
+        def run(refs, blens, reads, rlens):
+            bl = refs.shape[0] // n
+            r, bln, rd, rl = (x[s * bl:(s + 1) * bl]
+                              for x in (refs, blens, reads, rlens))
             score, bk, bi = sw_cuda.sw_align(r, bln, rd, rl,
                                              bisulfite=bisulfite)
             ev_pos, ev_kind, ins_j, _ = psw.sw_traceback_device(
                 r, bln, rd, rl, bk, bi, bisulfite=bisulfite)
-            parts.append(psw.pileup_scatter(
+            part = psw.pileup_scatter(
                 ev_pos.reshape(-1).long(), ev_kind.reshape(-1),
                 (ins_j >= 0).reshape(-1),
-                torch.zeros((gs_pad, 6), dtype=torch.int16, device=dev)))
-            outs.append((score, bk, bi))
-        total = parts[0]
-        for p in parts[1:]:
-            total += p.to(total.device)
-        blocks = [b.to(d) for b, d in zip(total.view(n, gs_pad // n, 6),
-                                          devs)]
-        score, bk, bi = (torch.cat([o[k].to(devs[0]) for o in outs])
-                         for k in range(3))
-        return score, bk, bi, blocks
-    if not graph:
-        return eager
+                torch.zeros((gs_pad, 6), dtype=torch.int16,
+                            device=r.device))
+            block = yield from comm.psum_scatter(part)
+            return torch.stack([score, bk, bi]), block
+        return run
 
-    def packed(*ins):
-        """The step's outputs as one int32 vector: score, bk, bi, then
-        the summed partial's int16 bits."""
-        score, bk, bi, blocks = eager(*ins)
-        return torch.cat([score, bk, bi,
-                          torch.cat(blocks).reshape(-1).view(torch.int32)])
-
+    def gather(firsts):
+        """(3, B / n) a shard -> score, bk, bi rows of (3, B)."""
+        return torch.cat(firsts, dim=1)
     programs = {}
 
     def step(refs, blens, reads, rlens):
@@ -151,11 +141,10 @@ def sharded_map_step(mesh: Mesh, genome_size: int, bisulfite: bool = False,
             raise ValueError(f"B={B} must divide by n_shards={n}")
         key = tuple((tuple(x.shape), str(x.dtype)) for x in ins)
         if key not in programs:
-            programs[key] = StepProgram(packed, devs[0])
-        out = programs[key]([ins])[0]
-        score, bk, bi = out[:3 * B].view(3, B)
-        pile = out[3 * B:].view(torch.int16).view(n, gs_pad // n, 6)
-        return score, bk, bi, list(pile)
+            programs[key] = MeshProgram([shard(s) for s in range(n)], devs,
+                                        gather, graph=graph)
+        (score, bk, bi), blocks = programs[key](ins)
+        return score, bk, bi, list(blocks)
     step.programs = programs
     return step
 
@@ -272,9 +261,10 @@ def sharded_fused_step2(mesh: Mesh, states: list, *, paired: bool,
 
 
 class ShardComm:
-    """The collectives of genome shard ``index`` of ``size``: each is a
-    generator that yields its request to ``lockstep`` and returns the
-    reduced tensor on the shard's device."""
+    """The collectives of shard ``index`` of ``size``: each is a
+    generator that yields its request to the runner (``lockstep``, or
+    ``mapper.program.MeshProgram``) and returns the reduced tensor on
+    the shard's device."""
 
     def __init__(self, index: int, size: int):
         self.index = index
@@ -289,6 +279,37 @@ class ShardComm:
     def all_gather(self, x, dim: int):
         """Concatenation along ``dim`` in shard order (tiled)."""
         return (yield ("all_gather", x, dim))
+
+    def psum_scatter(self, x):
+        """Row block ``index`` of the shard-order sum (x's rows split
+        into ``size`` blocks).  ``mapper.program.MeshProgram`` runs it;
+        ``lockstep`` does not."""
+        return (yield ("psum_scatter", x))
+
+
+def collective_operand(req, s: int, n: int):
+    """What shard ``s``'s result of the collective ``req`` (kind,
+    operand[, dim]) needs of one of the ``n`` shards' operand: all of
+    it, or for a reduce-scatter its row block ``s``."""
+    x = req[1]
+    if req[0] == "psum_scatter":
+        return x.view(n, x.shape[0] // n, *x.shape[1:])[s]
+    return x
+
+
+def reduce_collective(req, xs):
+    """The collective ``req`` over ``xs``, the shards' operands (or
+    their ``collective_operand``) in shard order on one device: pmax
+    and psum elementwise (psum in the operands' dtype, as the
+    reference's int32 psum), all_gather a shard-major concatenation."""
+    kind = req[0]
+    if kind == "pmax":
+        return torch.stack(xs).amax(0)
+    if kind in ("psum", "psum_scatter"):
+        return torch.stack(xs).sum(0, dtype=xs[0].dtype)
+    if kind == "all_gather":
+        return torch.cat(xs, dim=req[2])
+    raise ValueError(f"unknown collective {kind!r}")
 
 
 def lockstep(gens) -> list:
@@ -314,12 +335,8 @@ def lockstep(gens) -> list:
         if any(r[0] != kind or r[2:] != reqs[0][2:] for r in reqs):
             raise RuntimeError(f"genome shards at different collectives: "
                                f"{[r[0] for r in reqs]}")
+        if kind == "psum_scatter":
+            raise ValueError("lockstep runs no reduce-scatter")
         dev0 = reqs[0][1].device
-        xs = [r[1].to(dev0) for r in reqs]
-        if kind == "pmax":
-            red = torch.stack(xs).amax(0)
-        elif kind == "psum":
-            red = torch.stack(xs).sum(0, dtype=xs[0].dtype)
-        else:
-            red = torch.cat(xs, dim=reqs[0][2])
+        red = reduce_collective(reqs[0], [r[1].to(dev0) for r in reqs])
         sends = [red.to(r[1].device) for r in reqs]

@@ -6,7 +6,11 @@ engine at one shard against the port's quarter engine; the int64 shard
 plan past 2^31; the walk-tie cap, where the port sends the units past
 the merged cap to the host remap, and the insertion cap, where the
 port keeps one record block a shard (the JAX engine raises at both);
-a mesh over two devices, which one graph cannot hold.
+the step as a MeshProgram (mapper/program.py: segments between the 13
+collectives, each collective reduced on each device) over two and four
+device entries (cpu and cpu:0 stand for two devices) against lockstep
+(graph=False); on the card two shards of cuda:0, graphed against eager,
+and the same shards over two cards.
 
 Tolerance: bitwise (equal codes, .mfile values, mate counts,
 statistics, pileup and insertion records)."""
@@ -28,7 +32,7 @@ from pecaller_tpu_torch.index import shard as tsh
 from pecaller_tpu_torch.index.quarter import build_quarter_index
 from pecaller_tpu_torch.mapper.device_map2 import FusedMapperEngine2
 from pecaller_tpu_torch.mapper.gshard import OctileShardedEngine
-from pecaller_tpu_torch.parallel.mesh import Mesh
+from pecaller_tpu_torch.parallel.mesh import Mesh, make_mesh
 from torch_util import cuda_device  # noqa: F401  (fixture)
 from torch_util import (CPU, PAIRED, batches, jax_genome_mesh, load_genome,
                         make_gshard_data, make_tie_genome_data,
@@ -65,12 +69,13 @@ def _same_state(ref, eng):
 
 @pytest.mark.parametrize("n_shards,graph", [
     pytest.param(1, True, id="1"), pytest.param(2, True, id="2"),
-    pytest.param(2, False, id="2-graph-vs-eager")])
+    pytest.param(2, False, id="2-graph-vs-eager"),
+    pytest.param(4, True, id="4")])
 def test_gshard_matches_oracle_and_jax(data, n_shards, graph):
     """The engine against the host oracle and the JAX engine; with
-    graph=False also against the same engine with graph=True, whose
-    step (every shard and the collectives) is one program a shape key
-    and one stacked output a batch."""
+    graph=False (lockstep) also against the same engine with
+    graph=True, whose step (every shard and the collectives) is one
+    MeshProgram a shape key and one stacked output a batch."""
     sdx, genome, index = load_genome(data)
     host = MapperEngine(sdx, genome, index, **PAIRED)
     jeng = JaxSharded(sdx, genome, index, jax_genome_mesh(n_shards),
@@ -168,10 +173,13 @@ def test_tie_cap_overflow_goes_to_the_host(data, monkeypatch):
         jeng.map_batch(s1, l1, s2, l2, read_nos=nos)
 
     host = MapperEngine(sdx, genome, index, **PAIRED)
-    port = OctileShardedEngine(sdx, genome, index, port_genome_mesh(2),
-                               tie_cap=cap, **PAIRED)
-    _run([host, port], data)
-    _same_state(host, port)
+    port, eager = (OctileShardedEngine(sdx, genome, index,
+                                       port_genome_mesh(2), tie_cap=cap,
+                                       graph=graph, **PAIRED)
+                   for graph in (True, False))
+    _run([host, port, eager], data)
+    for ref in (host, eager):
+        _same_state(ref, port)
     assert port.n_fallback > 0
 
 
@@ -202,21 +210,62 @@ def test_ins_cap_merge_past_the_cap(data, monkeypatch):
             jeng.map_batch(s1, l1, s2, l2, read_nos=nos)
 
     host = MapperEngine(sdx, genome, index, **PAIRED)
-    port = OctileShardedEngine(sdx, genome, index, port_genome_mesh(2),
-                               ins_cap=cap, **PAIRED)
-    _run([host, port], data)
-    _same_state(host, port)
+    port, eager = (OctileShardedEngine(sdx, genome, index,
+                                       port_genome_mesh(2), ins_cap=cap,
+                                       graph=graph, **PAIRED)
+                   for graph in (True, False))
+    _run([host, port, eager], data)
+    for ref in (host, eager):
+        _same_state(ref, port)
     assert len(port.ins_records) > cap
 
 
-def test_graph_on_a_mesh_of_two_devices_raises(data):
-    """One CUDA graph cannot hold reductions across devices: a genome
-    mesh over two devices raises with graph=True, before building
-    anything, and names graph=False."""
+def _raw(eng, d):
+    """Each batch's raw step outputs: packed rows, insertion records and
+    walk-tie records, every batch enqueued before the first is fetched
+    (the runner keeps several in flight)."""
+    pend = [eng.map_batch_async(s1, l1, s2, l2, read_nos=nos)
+            for s1, l1, s2, l2, nos in batches(d, "r1.fastq", "r2.fastq",
+                                               600)]
+    return [[np.array(x) for x in eng._blocks(h)] for h in pend]
+
+
+def _same_raw(a, b):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        for u, v in zip(x, y):
+            assert u.shape == v.shape and np.array_equal(u, v)
+
+
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_graph_on_a_mesh_of_two_devices(data, n_shards):
+    """A genome mesh over two device entries (cpu and cpu:0 alternate,
+    as two cards would) with graph=True: the MeshProgram lays out one
+    set of segments a shard and one set of reductions a device, 13
+    collectives and 14 segments a shard, and every batch's packed rows,
+    insertion and walk-tie records equal lockstep's (graph=False),
+    bitwise."""
     sdx, genome, index = load_genome(data)
-    mesh = Mesh([CPU, torch.device("meta")], 1, 2)
-    with pytest.raises(ValueError, match="graph=False"):
-        OctileShardedEngine(sdx, genome, index, mesh, **PAIRED)
+    two = [CPU, torch.device("cpu", 0)] * (n_shards // 2)
+    plan = tsh.plan_shards(sdx, n_shards)
+    shards = tsh.build_octile_shards(index, plan)
+    engines = [OctileShardedEngine(sdx, genome, index,
+                                   make_mesh(1, n_shards, two), plan=plan,
+                                   shards=shards, graph=graph, **PAIRED)
+               for graph in (True, False)]
+    raws = [_raw(e, data) for e in engines]
+    _same_raw(*raws)
+    assert any(len(b[2]) for b in raws[0])          # walk-tie records
+    assert any(len(b[1]) for b in raws[0])          # insertion records
+    prog, = engines[0].programs
+    assert prog.graph and prog.calls == len(raws[0])
+    assert prog.by_device == {two[0]: list(range(0, n_shards, 2)),
+                              two[1]: list(range(1, n_shards, 2))}
+    assert prog.collectives == ["psum", "pmax", "psum", "pmax"]  \
+        + ["all_gather"] * 5 + ["pmax", "psum", "all_gather", "pmax"]
+    assert prog.segments == 14
+    eager, = engines[1].programs
+    assert not eager.graph and eager.capture_s is None
 
 
 @pytest.mark.cuda
@@ -229,3 +278,56 @@ def test_gshard_on_the_card(data, cuda_device):
                for dev in (CPU, cuda_device)]
     _run(engines, data)
     _same_state(*engines)
+
+
+def _graphed_vs_eager(data, devs):
+    """Engines over ``devs`` graphed and eager: raw outputs of every
+    batch bitwise (first call eager, the second captured, the rest
+    replayed), pileups equal; returns the graphed engine."""
+    sdx, genome, index = load_genome(data)
+    plan = tsh.plan_shards(sdx, len(devs))
+    shards = tsh.build_octile_shards(index, plan)
+    engines = [OctileShardedEngine(sdx, genome, index,
+                                   make_mesh(1, len(devs), devs), plan=plan,
+                                   shards=shards, graph=graph, **PAIRED)
+               for graph in (True, False)]
+    raws = [_raw(e, data) for e in engines]
+    _same_raw(*raws)
+    assert np.array_equal(engines[0].final_pileup(),
+                          engines[1].final_pileup())
+    return engines[0], raws[0]
+
+
+@pytest.mark.cuda
+def test_gshard_graph_on_the_card(data, cuda_device):
+    """Two shards on cuda:0 as a MeshProgram (a graph a shard a segment,
+    a graph a collective, one pool) against lockstep (graph=False) on
+    the card: raw outputs bitwise."""
+    from pecaller_tpu_torch.ops import sw_cuda
+    eng, _ = _graphed_vs_eager(data, [cuda_device] * 2)
+    prog, = eng.programs
+    assert list(prog.pools) == [cuda_device] and prog.capture_s > 0
+    assert prog.n_graphs == 2 * 14 + 13 + 1 and prog.n_copies == 0
+    k0 = dict(sw_cuda.LAUNCHES)
+    prog.replay()
+    assert sw_cuda.LAUNCHES == k0                 # a bare replay counts none
+    assert prog.launches == {"sw_align_x": 2, "sw_tb_rows": 2,
+                             "sw_align": 0}
+
+
+@pytest.mark.cuda
+def test_gshard_on_two_cards(data, cuda_device):
+    """The same two shards on cuda:0 and cuda:1 (skipped with fewer than
+    two cards): graphed against lockstep over the two cards and against
+    the program with both shards on cuda:0, bitwise; one pool a card and
+    the copies between the cards' graphs."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    eng, raw = _graphed_vs_eager(data, cards)
+    prog, = eng.programs
+    assert list(prog.pools) == cards
+    assert prog.n_graphs == 2 * 14 + 2 * 13 + 1
+    assert prog.n_copies == 2 * 13 + 1
+    _, one = _graphed_vs_eager(data, [cuda_device] * 2)
+    _same_raw(raw, one)

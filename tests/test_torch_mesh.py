@@ -13,8 +13,11 @@ screen is held.
 sharded_map_step on a (4, 2) mesh of CPU devices against the JAX step
 on 8 virtual devices (__graft_entry__._example_batch, bisulfite off and
 on): score, bk, bi and the concatenated pileup blocks read as uint16,
-bitwise.  site_likelihoods, site_posteriors_flat and sharded_call_step
-against JAX's and against a float64 scipy.special.gammaln evaluation of
+bitwise; its reduce-scatter over 2 and 4 shards on alternating device
+entries (cpu, cpu:0) against JAX's psum_scatter step.  The MeshProgram
+(mapper/program.py) on a fake step against lockstep: bitwise.
+site_likelihoods, site_posteriors_flat and sharded_call_step against
+JAX's and against a float64 scipy.special.gammaln evaluation of
 the same formula (alpha as the formula rounds it in float32): the port's
 largest absolute error is at most twice JAX's own plus 1e-3 (plus 1e-4
 for the posteriors, which lie in [0, 1])."""
@@ -42,6 +45,7 @@ from pecaller_tpu_torch.caller import CallerConfig, run_caller
 from pecaller_tpu_torch.caller import device_model as tdmod
 from pecaller_tpu_torch.caller import device_screen as tds
 from pecaller_tpu_torch.mapper import device_map2 as tdm
+from pecaller_tpu_torch.mapper.program import MeshProgram
 from pecaller_tpu_torch.mapper.runner import MapperConfig, run_mapper
 from pecaller_tpu_torch.parallel import mesh as tmesh
 from test_screen import _fuzz_counts, _mk_sdx
@@ -252,6 +256,59 @@ def test_lockstep_reduces_in_shard_order():
         tmesh.lockstep([odd(0), odd(1)])
 
 
+def _fake_shard(g, n):
+    """A step of shard g of n meeting each kind of collective."""
+    comm = tmesh.ShardComm(g, n)
+    x = yield from comm.pmax(torch.tensor([g, -g]))
+    y = yield from comm.psum(torch.tensor([g + 1], dtype=torch.int32))
+    z = yield from comm.all_gather(torch.tensor([[10 * g, 10 * g + 1]]), 1)
+    return torch.cat([x, y, z[0]]), None
+
+
+def test_mesh_program_reduces_like_lockstep():
+    """MeshProgram over three shards on two device entries: every
+    shard's collectives equal lockstep's (graphed on the CPU: static
+    outputs, two calls); a reduce-scatter hands shard s row block s of
+    the shard-order sum, in the operand's dtype (int16 wraps); shards at
+    different collectives raise as in lockstep."""
+    devs = [CPU, torch.device("cpu", 0), CPU]
+    want = [r[0] for r in tmesh.lockstep([_fake_shard(g, 3)
+                                          for g in range(3)])]
+    prog = MeshProgram([lambda g=g: _fake_shard(g, 3) for g in range(3)],
+                       devs, torch.stack)
+    for _ in range(2):
+        got, local = prog([])
+        assert torch.equal(got, torch.stack(want)) and local == [None] * 3
+    assert prog.collectives == ["pmax", "psum", "all_gather"]
+    assert prog.segments == 4 and prog.calls == 2
+    assert prog.by_device == {CPU: [0, 2], devs[1]: [1]}
+
+    def scatter(g):
+        x = torch.full((6, 2), 20000, dtype=torch.int16)
+        x[:, 1] = torch.arange(6) * (g + 1)
+        blk = yield from tmesh.ShardComm(g, 3).psum_scatter(x)
+        return blk[:1, 1], blk
+    prog = MeshProgram([lambda g=g: scatter(g) for g in range(3)], devs,
+                       torch.cat, graph=False)
+    firsts, blocks = prog([])
+    total = (np.full(6, 60000) & 0xFFFF).astype(np.uint16).view(np.int16)
+    for s, blk in enumerate(blocks):
+        assert blk.dtype == torch.int16 and blk.shape == (2, 2)
+        assert blk[:, 0].tolist() == total[2 * s:2 * s + 2].tolist()
+        assert blk[:, 1].tolist() == [6 * (2 * s), 6 * (2 * s + 1)]
+    assert firsts.tolist() == [0, 12, 24]
+
+    def odd(g):
+        comm = tmesh.ShardComm(g, 2)
+        if g:
+            yield from comm.psum(torch.zeros(1))
+        yield from comm.pmax(torch.zeros(1))
+        return torch.zeros(1), None
+    with pytest.raises(RuntimeError, match="different collectives"):
+        MeshProgram([lambda g=g: odd(g) for g in range(2)], [CPU, CPU],
+                    torch.stack)([])
+
+
 def _map_batch():
     return __graft_entry__._example_batch(B=64, N=64, M=48, seed=3)
 
@@ -276,19 +333,47 @@ def test_sharded_map_step_matches_jax(bisulfite):
         tmesh.sharded_map_step(mesh, gs)(*(x[:60] for x in batch))
 
 
+@pytest.mark.parametrize("bisulfite", [False, True])
+@pytest.mark.parametrize("n", [2, 4])
+def test_sharded_map_step_reduce_scatter_matches_jax(n, bisulfite):
+    """The reduce-scatter over n shards on alternating device entries
+    (each entry sums its shards' row blocks of every partial) against
+    JAX's psum_scatter step over n virtual devices: score, bk, bi and
+    the blocks, bitwise; one psum_scatter, two segments a shard."""
+    gs = 2048
+    batch = _map_batch()
+    want = [np.asarray(x) for x in jmesh.sharded_map_step(
+        jmesh.make_mesh(n, 1), gs, bisulfite=bisulfite)(*batch)]
+    devs = [CPU, torch.device("cpu", 0)] * (n // 2)
+    step = tmesh.sharded_map_step(tmesh.make_mesh(n, 1, devs), gs,
+                                  bisulfite=bisulfite)
+    score, bk, bi, blocks = step(*batch)
+    assert len(blocks) == n and blocks[0].shape == (gs // n, 6)
+    got = [score.numpy(), bk.numpy(), bi.numpy(),
+           torch.cat(blocks).numpy().view(np.uint16)]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and np.array_equal(g, w)
+    assert want[3].sum() > 0
+    prog, = step.programs.values()
+    assert prog.collectives == ["psum_scatter"] and prog.segments == 2
+    assert list(prog.by_device) == devs[:2]
+
+
 def _map_outputs(out):
+    """score, bk, bi and the blocks (each on its shard's device) as host
+    arrays."""
     score, bk, bi, blocks = out
-    return [x.cpu().numpy().copy() for x in (score, bk, bi,
-                                             torch.cat(blocks))]
+    return [x.cpu().numpy().copy() for x in (score, bk, bi)] + [
+        torch.cat([b.cpu() for b in blocks]).numpy()]
 
 
 @pytest.mark.parametrize("bisulfite", [False, True])
 def test_sharded_map_step_program_matches_eager(bisulfite):
     """graph=True (the whole step of an input shape as one program; on
-    the CPU its slots and one static output) against graph=False on a
+    the CPU its slots and static outputs) against graph=False on a
     (4, 2) mesh of one device, three calls on three batches: bitwise.
-    A mesh over two devices raises with graph=True and names
-    graph=False."""
+    A mesh over two device entries takes graph=True too, and equals the
+    one-device step."""
     gs = 2048
     mesh = tmesh.make_mesh(4, 2, [CPU] * 8)
     prog = tmesh.sharded_map_step(mesh, gs, bisulfite=bisulfite)
@@ -301,10 +386,11 @@ def test_sharded_map_step_program_matches_eager(bisulfite):
             assert g.dtype == w.dtype and np.array_equal(g, w)
         assert want[3].any()
     assert [p.calls for p in prog.programs.values()] == [3]
-    two = tmesh.Mesh([CPU, torch.device("meta")], 2, 1)
-    with pytest.raises(ValueError, match="graph=False"):
-        tmesh.sharded_map_step(two, gs)
-    tmesh.sharded_map_step(two, gs, graph=False)
+    two = tmesh.Mesh([CPU, torch.device("cpu", 0)] * 4, 4, 2)
+    got = _map_outputs(tmesh.sharded_map_step(two, gs, bisulfite=bisulfite)(
+        *batch))
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
 
 
 def _like_inputs(S=256, indiv=3, seed=21):
@@ -434,3 +520,30 @@ def test_sharded_map_step_graph_on_the_card(cuda_device, bisulfite):
     assert counts[True] == counts[False] == 6
     prog, = steps[True].programs.values()
     assert prog.calls == 3 and prog.capture_s is not None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bisulfite", [False, True])
+def test_sharded_map_step_on_two_cards(cuda_device, bisulfite):
+    """Two shards on cuda:0 and cuda:1 (skipped with fewer than two
+    cards), graphed (eager, captured, replayed) and with graph=False,
+    against both shards on cuda:0: bitwise; each block on its card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    lanes = [[torch.from_numpy(x).to(cuda_device) for x in chip_smoke.mk_lanes(
+        np.random.default_rng(70 + i), 2048, 160, 112, 90, 101, raw=True)]
+        for i in range(3)]
+    got = {}
+    for name, devs, graph in (("one", [cuda_device] * 2, True),
+                              ("two", cards, True), ("eager", cards, False)):
+        step = tmesh.sharded_map_step(tmesh.make_mesh(2, 1, devs), 4096,
+                                      bisulfite=bisulfite, graph=graph)
+        outs = [step(*x) for x in lanes]
+        if name != "one":
+            assert [b.device for b in outs[-1][3]] == cards
+        got[name] = [_map_outputs(step(*x)) for x in lanes]
+    for name in ("two", "eager"):
+        for a, b in zip(got["one"], got[name]):
+            for x, y in zip(a, b):
+                assert np.array_equal(x, y)
