@@ -24,10 +24,13 @@ Phases (each prints one line; any failure raises and exits non-zero):
      k2_edge_lanes, k3_edge_lanes) at 100 bp and 250 bp widths (M 112
      and 256), B 1 and 1001
   4. main path (v2): an E. coli-scale genome (4.6 Mb, seed 2024) and 100k
-     100 bp pairs, made once under .smoke/; `pemapper --device` in
-     8192-pair batches through the port's command line, each shape
-     key's step a CUDA graph (mapper/program.py), against the host
-     oracle (same command line without --device): .summary.txt,
+     100 bp pairs, made once under .smoke/; `pemapper` with the
+     reference's own argv (no device flag: the device route on cuda:0,
+     asserted to be the v2 engine there) in 8192-pair batches through
+     the port's command line, each shape key's step a CUDA graph
+     (mapper/program.py), against the host oracle (the same command
+     line with --host, the exact host engine, run beside the nbr index
+     build): .summary.txt,
      .pileup.gz, .indel.txt.gz and both .mfile dumps byte-equal; K1 and
      K2 counted once a batch on that run, replays included; again with
      PECALLER_GROUP_K=3 (three batches a graph), the same five
@@ -50,10 +53,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
   6. v2.5 path: bench.py's mid-size data (one 47 Mb contig "chr21x",
      seed 2025, 50k 100 bp pairs), made once under .smoke/mid/; the
      exact-key index build, the quartered-key index build (cached as
-     .q4x parts) and its upload, each timed; `pemapper --device` in
-     8192-pair batches through the port's command line, where the
+     .q4x parts) and its upload, each timed; `pemapper` (no device
+     flag) in 8192-pair batches through the port's command line, where the
      runner must pick the quartered-key index (the nbr index refuses
-     the genome up front), graphed, against the host oracle: all five
+     the genome up front), graphed, against the host oracle (run
+     beside the quartered-key build): all five
      artifacts byte-equal, K1 and K2 counted once a batch;
      graph_vs_eager; fallbacks, re-walked ties, units the probe's caps
      sent to the host, peak device memory
@@ -110,7 +114,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
      the programs' capture and instantiate seconds and pool bytes, and
      the screen's sites/s graphed and eager
 
-  9. reads-axis mesh: phase 4's data through `pemapper --device` with
+  9. reads-axis mesh: phase 4's data through `pemapper` (no flag) with
      mesh_shards 2 on [cuda:0, cuda:0] (run_mapper with a device list),
      each shard's step a graph: all five artifacts byte-equal to the
      host oracle, K1 and K2 counted once a batch a shard;
@@ -120,7 +124,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      shards on cuda:0, host_screen=False) byte-equal to the exact
      engine, sites/s
   10. genome-sharded octile: phase 6's data; plan_shards(sdx, 2) and
-     build_octile_shards timed, each shard's table bytes; the
+     build_octile_shards timed (the build runs beside phase 6's oracle
+     in the full smoke), each shard's table bytes; the
      OctileShardedEngine with both shards on cuda:0, built directly as
      phase 5 builds v1, each batch's step a MeshProgram (each shard's
      step cut at its 13 collectives into 14 segments, a CUDA graph a
@@ -138,8 +143,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      memory; with one card the genome_mesh_cards line says the
      two-card run did not happen
   11. multi-process: two processes joined by init_distributed (gloo on
-     localhost), both on cuda:0; run_mapper_distributed on phase 4's
-     reads split into two fastq pairs (the parts' pileups merge to the
+     localhost), both on cuda:0; run_mapper_distributed with its
+     default devices (process p on cuda:{p % cards}, asserted) on phase
+     4's reads split into two fastq pairs (the parts' pileups merge to the
      host oracle's, their .mfile dumps concatenate to its bytes), then
      run_caller_distributed and merge_caller_parts on phase 8's cohort
      (.snp, .dist, .base.gz and .piles.gz byte-equal to the exact
@@ -1020,6 +1026,33 @@ def _run_dir(name, data=DATA):
     return d
 
 
+def _background(fn):
+    """Start ``fn()`` in a thread; the returned ``join()`` gives (its
+    result, its seconds) or raises what it raised.  The host oracles run
+    so beside the host index builds: a build holds one core, the
+    oracle's native threads the rest; each is joined before anything is
+    timed on the card."""
+    import threading
+    box = {}
+
+    def run():
+        t0 = time.time()
+        try:
+            box["out"] = fn()
+        except BaseException as e:          # re-raised by join()
+            box["err"] = e
+        box["s"] = time.time() - t0
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+
+    def join():
+        th.join()
+        if "err" in box:
+            raise box["err"]
+        return box["out"], box["s"]
+    return join
+
+
 def _artifacts(d):
     out = {}
     for ext in (".pileup.gz", ".indel.txt.gz"):
@@ -1032,12 +1065,15 @@ def _artifacts(d):
 
 
 def _argv(d, n_pairs, device, data=DATA):
+    """The `pemapper` argv of a run under ``d``: the reference's own
+    (the port's default, the device route) where ``device``, else with
+    --host (the exact host engine, the oracle)."""
     threads = str(os.cpu_count() or 2)
     argv = [os.path.join(d, "out"), os.path.join(data, "g.sdx"), "p",
             os.path.join(d, "r1.fastq"), os.path.join(d, "r2.fastq"),
             "500", "0", "n", "0.9", threads, str(n_pairs),
             "--batch-size", str(BATCH)]
-    return argv + (["--device"] if device else [])
+    return argv + ([] if device else ["--host"])
 
 
 def _batches(n_pairs, data=DATA):
@@ -1208,13 +1244,22 @@ def main_path(n_pairs):
     t0 = time.time()
     base = os.path.join(DATA, "g")
     index = load_index(base)
+    # the host oracle: the same command line with --host (the exact host
+    # engine), beside the nbr index build
+    host_dir = _run_dir("host")
+    oracle = _background(lambda: run_mapper(cli.parse_pemapper(
+        _argv(host_dir, n_pairs, False))))
     nbr = load_nbr_index(base, index)          # build + cache .nbx parts
     t_nbr = time.time() - t0
+    host, t_host = oracle()
+    if type(host).__name__ != "MapperEngine":
+        raise AssertionError(f"--host built {type(host).__name__}")
     batches = _batches(n_pairs)
 
-    # the port's device path: `python -m pecaller_tpu_torch pemapper
-    # ... --device` (cli.parse_pemapper), in this process so the kernel
-    # launch counters are readable; each shape key's step a CUDA graph
+    # the port's default route: `python -m pecaller_tpu_torch pemapper
+    # ...` with no device flag (cli.parse_pemapper), in this process so
+    # the kernel launch counters are readable; each shape key's step a
+    # CUDA graph
     dev_dir = _run_dir("device")
     dev = torch.device("cuda", 0)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1225,15 +1270,14 @@ def main_path(n_pairs):
     t_dev = time.time() - t0
     launches = dict(sw_cuda.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
+    if not isinstance(eng, FusedMapperEngine2) or eng.device != dev:
+        raise AssertionError(f"the flagless command line built "
+                             f"{type(eng).__name__} on {eng.device}, not "
+                             f"the v2 engine on {dev}")
     _check_launches("v2", launches, len(batches), ("sw_align_x",
                                                    "sw_tb_rows"))
     n_fallback, n_tiefix = eng.n_fallback, eng.n_tiefix
 
-    # the host oracle: the same command line without --device
-    host_dir = _run_dir("host")
-    t0 = time.time()
-    host = run_mapper(cli.parse_pemapper(_argv(host_dir, n_pairs, False)))
-    t_host = time.time() - t0
     want = _artifacts(host_dir)
     _gate("v2 graphed", _artifacts(dev_dir), want)
     if want["out.summary.txt"].count(b"\n") < 5 or not want[".pileup.gz"]:
@@ -1406,11 +1450,21 @@ def v1_path(n_pairs, host):
     return launches
 
 
+def _octile_shards(index, data=MID):
+    """Phase 10's two octile shards of ``data``'s genome (host build)."""
+    from pecaller_tpu_torch.formats.sdx import read_sdx
+    from pecaller_tpu_torch.index.shard import build_octile_shards, plan_shards
+    sdx = read_sdx(os.path.join(data, "g.sdx"))
+    return build_octile_shards(index, plan_shards(sdx, 2))
+
+
 def mid_path(n_pairs):
     """Phase 6: the v2.5 path (v2 step on the quartered-key index) at the
     bench's mid size, through the port's command line, graphed; then
-    graphed against eager.  Returns K1/K2 launches and the host oracle's
-    engine (phase 7's reference)."""
+    graphed against eager.  Returns K1/K2 launches, the host oracle's
+    engine (phase 7's reference) and phase 10's octile shards with their
+    build seconds (built beside the quartered-key build and the
+    oracle)."""
     import torch
     from pecaller_tpu_torch import cli
     from pecaller_tpu_torch.formats.index_files import load_index
@@ -1426,8 +1480,14 @@ def mid_path(n_pairs):
     base = os.path.join(MID, "g")
     t0 = time.time()
     index = load_index(base)
+    host_dir = _run_dir("host", MID)         # the oracle, beside the build
+    oracle = _background(lambda: run_mapper(cli.parse_pemapper(
+        _argv(host_dir, n_pairs, False, MID))))
+    octile = _background(lambda: _octile_shards(index))
     qi = load_quarter_index(base, index)             # build + cache .q4x
     t_quarter = time.time() - t0
+    host, t_host = oracle()
+    octile_built = octile()
     dev = torch.device("cuda", 0)
     torch.cuda.synchronize(dev)
     t0 = time.time()
@@ -1457,11 +1517,6 @@ def mid_path(n_pairs):
     n_fallback, n_tiefix = eng.n_fallback, eng.n_tiefix
     n_cap = eng.n_cap_fallback
 
-    host_dir = _run_dir("host", MID)
-    t0 = time.time()
-    host = run_mapper(cli.parse_pemapper(_argv(host_dir, n_pairs, False,
-                                               MID)))
-    t_host = time.time() - t0
     got, want = _artifacts(dev_dir), _artifacts(host_dir)
     diff = [k for k in want if got[k] != want[k]]
     if diff:
@@ -1490,7 +1545,7 @@ def mid_path(n_pairs):
                      host_run=round(t_host, 1)))
     del eng
     torch.cuda.empty_cache()
-    return launches, host
+    return launches, host, octile_built
 
 
 def _split_timers(eng, keep=False):
@@ -2369,7 +2424,7 @@ def _card():
 
 
 def map_oracle(n_pairs, data=DATA):
-    """The host oracle: `pemapper` on ``data``'s reads without --device,
+    """The host oracle: `pemapper` on ``data``'s reads with --host,
     under ``data``/host.  Returns its directory and engine."""
     from pecaller_tpu_torch import cli
     from pecaller_tpu_torch.mapper.runner import run_mapper
@@ -2413,7 +2468,7 @@ def _spread(rates):
 
 def reads_mesh(n_pairs, host_dir, cb, call_want):
     """Phase 9: the reads-axis mesh, two shards on cuda:0.  `pemapper
-    ... --device` as phase 4's command line with mesh_shards 2 through
+    ...` as phase 4's command line with mesh_shards 2 through
     run_mapper(device=[cuda:0, cuda:0]), each shard's step a graph: all
     five artifacts byte-equal to the host oracle; graphed against the
     eager mesh engine (graph_vs_eager; phase 4 has one device's reads/s
@@ -2498,7 +2553,7 @@ def _mesh_program(eng):
                 pool_bytes_by_device=prog.pool_bytes_by_device)
 
 
-def genome_mesh(n_pairs, host_dir):
+def genome_mesh(n_pairs, host_dir, built=None):
     """Phase 10: the genome-sharded octile engine on phase 6's data, two
     genome shards on cuda:0, built directly (the runner has no route to
     it): the shard plan and octile builds timed, each shard's table
@@ -2511,14 +2566,16 @@ def genome_mesh(n_pairs, host_dir):
     cards, the same shards on cuda:0 and cuda:1: the same gate, the raw
     outputs of the first batches bitwise to the one-card program's,
     reads/s and each card's peak memory; with one card a line says that
-    run did not happen.  Returns K1/K2 launches of the gate run."""
+    run did not happen.  ``built``: the octile shards and their build
+    seconds where phase 6 built them beside its oracle, else built here.
+    Returns K1/K2 launches of the gate run."""
     import numpy as np
     import torch
     from pecaller_tpu_torch import cli
     from pecaller_tpu_torch.formats.index_files import load_index
     from pecaller_tpu_torch.formats.sdx import read_sdx, read_seq
     from pecaller_tpu_torch.index.quarter import OCT_LOCAL_MAX
-    from pecaller_tpu_torch.index.shard import build_octile_shards, plan_shards
+    from pecaller_tpu_torch.index.shard import plan_shards
     from pecaller_tpu_torch.mapper.gshard import OctileShardedEngine
     from pecaller_tpu_torch.mapper.runner import map_files
     from pecaller_tpu_torch.ops import sw_cuda
@@ -2532,9 +2589,10 @@ def genome_mesh(n_pairs, host_dir):
     t0 = time.time()
     plan = plan_shards(sdx, 2)
     t_plan = time.time() - t0
-    t0 = time.time()
-    shards = build_octile_shards(index, plan)
-    t_build = time.time() - t0
+    if built is None:
+        t0 = time.time()
+        built = _octile_shards(index), time.time() - t0
+    shards, t_build = built
     table_bytes = [sum(np.asarray(a).nbytes
                        for a in (s.tagt, s.valt, s.pos, s.qw))
                    for s in shards]
@@ -2685,8 +2743,10 @@ if what == "map":
         files1=[os.path.join(d, f"a{i}_1.fastq") for i in range(2)],
         files2=[os.path.join(d, f"a{i}_2.fastq") for i in range(2)],
         max_dist=500, min_dist=0, min_align=0.9, batch_size=int(sys.argv[8]),
-        nthreads=int(sys.argv[9]), device=True, torch_device=device)
-    run_mapper_distributed(cfg, coord, 2, pid)
+        nthreads=int(sys.argv[9]))
+    eng = run_mapper_distributed(cfg, coord, 2, pid)
+    card = torch.device("cuda", pid % torch.cuda.device_count())
+    assert type(eng).__name__ == "FusedMapperEngine2" and eng.device == card
 else:
     from pecaller_tpu_torch.caller import CallerConfig
     from pecaller_tpu_torch.parallel.distributed import run_caller_distributed
@@ -2745,7 +2805,8 @@ def _split_fastq(src, dsts, n_first):
 def multi_process(n_pairs, host_dir, cb, call_want):
     """Phase 11: two processes joined by init_distributed (gloo, on
     localhost), both on cuda:0.  run_mapper_distributed maps phase 4's
-    reads split into two fastq pairs: the parts' pileups merge to the
+    reads split into two fastq pairs, each process on the card its
+    default gives it (cuda:{p % cards}): the parts' pileups merge to the
     host oracle's (single-process) pileup and their .mfile dumps to its
     .mfile bytes.  run_caller_distributed and merge_caller_parts call
     phase 8's cohort: .snp, .dist and the decompressed .base.gz and
@@ -3313,7 +3374,7 @@ def main():
         launches, host = main_path(args.pairs)
         launches["sw_align"] += v1_path(args.pairs, host)["sw_align"]
         del host
-        mid, host = mid_path(MID_PAIRS)
+        mid, host, octile = mid_path(MID_PAIRS)
         for k in launches:
             launches[k] += mid[k]
         k3_split, split_pools = split_path(MID_PAIRS, host)
@@ -3326,8 +3387,8 @@ def main():
         host_dir = os.path.join(DATA, "host")
         for k, v in reads_mesh(args.pairs, host_dir, cb, call_want).items():
             launches[k] += v
-        for k, v in genome_mesh(MID_PAIRS,
-                                os.path.join(MID, "host")).items():
+        for k, v in genome_mesh(MID_PAIRS, os.path.join(MID, "host"),
+                                octile).items():
             launches[k] += v
         multi_process(args.pairs, host_dir, cb, call_want)
         launches["sw_align"] += sharded_steps()

@@ -5,7 +5,8 @@ reference binary or script each command replaces (as ``python -m
 pecaller_tpu <command>`` takes it):
 
   index_genome      stdin answer-file protocol (index_genome_whole)
-  pemapper          pemapper.c CLI [--device[=DEV]] [--batch-size N]
+  pemapper          pemapper.c CLI [--device[=DEV] | --host]
+                    [--batch-size N]
   pemapper_tsw      pemapper_tsw.c CLI (trimming + output groups), the
                     same options
   pecaller          pecaller.c CLI [--device[=DEV]]
@@ -18,17 +19,24 @@ pecaller_tpu <command>`` takes it):
   snp_tran_counter  snp_tran_counter.pl (stdout)
   snp_tran_silent_rep  snp_tran_silent_rep.pl (stdout)
   map_directory     map_directory_array.pl (runs locally, no qsub)
+                    [--device[=DEV] | --host]
   call_directory    call_directory.pl (runs locally, no qsub)
                     [--device[=DEV]]
   merge_dir_fa      merge_dir_fa.pl
 
-Devices.  ``pemapper --device`` maps with the fused device engine on the
-first CUDA device and fails where there is none; ``--device=cpu`` runs
-that engine on the CPU (as the tests do); without it the exact host
-engine maps.  ``--batch-size`` sets the read pairs per batch (default
-20000).  ``pecaller`` and ``call_directory`` screen sites on the first
-CUDA device and fail where there is none; ``--device=cpu`` screens on
-the CPU.
+Devices.  ``pemapper``, ``pemapper_tsw`` and ``map_directory`` map on
+the card by default: the device engine that ``mapper.runner.
+device_route`` names for the genome, on every visible CUDA device (a
+reads mesh where there are several), and they fail where there is none.
+``--device=DEV`` names the torch device (``--device=cpu`` runs the
+device route on the CPU, as the tests do; a bare ``--device`` is the
+default); ``--host`` maps with the exact host engine instead, which is
+what the JAX package's command line does without ``--device``.
+``--host`` with ``--device`` is a usage error (exit code 2).
+``--batch-size`` sets the read pairs per batch (default 20000).
+``pecaller`` and ``call_directory`` screen sites on the first CUDA
+device and fail where there is none; ``--device=cpu`` screens on the
+CPU.
 """
 
 from __future__ import annotations
@@ -40,7 +48,13 @@ USAGE = ("usage: python -m pecaller_tpu_torch <command> <args>; commands: "
          "index_genome, pemapper, pemapper_tsw, pecaller, dump_pileups, "
          "pecall_merger, snp_to_vcf, make_snplist, make_snplist_restricted, "
          "merge_indel_snp, snp_tran_counter, snp_tran_silent_rep, "
-         "map_directory, call_directory, merge_dir_fa")
+         "map_directory, call_directory, merge_dir_fa; the mappers "
+         "(pemapper, pemapper_tsw, map_directory) run on the card unless "
+         "given --host (the exact host engine) or --device=cpu")
+
+
+class UsageError(ValueError):
+    """A command line that names conflicting options (exit code 2)."""
 
 
 def _yes(s: str) -> bool:
@@ -67,12 +81,23 @@ def _take_device(argv):
     return [a for a in argv if a not in flags], bool(flags), dev
 
 
+def _take_route(argv):
+    """(argv without its --device[=DEV] and --host flags, whether the
+    device route maps, DEV or None): the device route unless --host."""
+    argv, device, torch_device = _take_device(argv)
+    host = "--host" in argv
+    if host and device:
+        raise UsageError("--host (the exact host engine) and --device "
+                         "(the device route) exclude each other")
+    return [a for a in argv if a != "--host"], not host, torch_device
+
+
 def parse_pemapper(argv, tsw: bool = False):
     """The MapperConfig of a ``pemapper`` (``tsw``: ``pemapper_tsw``,
     two trim arguments after max_reads and the array list's output
     names) command line."""
     from .mapper.runner import MapperConfig
-    argv, device, torch_device = _take_device(list(argv))
+    argv, device, torch_device = _take_route(list(argv))
     batch_size = MapperConfig.batch_size
     if "--batch-size" in argv:
         k = argv.index("--batch-size")
@@ -148,6 +173,7 @@ def parse_map_directory(argv):
     """Pair the fastqs of a directory (map_directory_array.pl, run
     locally instead of qsub): the MapperConfig that maps them."""
     from .mapper.runner import MapperConfig
+    argv, device, torch_device = _take_route(list(argv))
     directory, sdxp = argv[0], argv[1]
     fastqs = sorted(set(
         f.split(".")[0] for f in os.listdir(directory)
@@ -181,7 +207,8 @@ def parse_map_directory(argv):
     return MapperConfig(out_base=directory.rstrip("/"), sdx_path=sdxp,
                         paired=paired, files1=files1, files2=files2,
                         max_dist=500, min_dist=0, min_align=0.85,
-                        max_reads=200000000, nthreads=23)
+                        max_reads=200000000, nthreads=23, device=device,
+                        torch_device=torch_device)
 
 
 def parse_call_directory(argv):
@@ -304,4 +331,8 @@ def main(argv=None) -> int:
     if not argv or argv[0] not in COMMANDS:
         print(USAGE, file=sys.stderr)
         return 2
-    return COMMANDS[argv[0]](argv[1:])
+    try:
+        return COMMANDS[argv[0]](argv[1:])
+    except UsageError as e:
+        print(f"{argv[0]}: {e}\n{USAGE}", file=sys.stderr)
+        return 2

@@ -14,5 +14,6 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             f"no CUDA device for {dev}: the device path runs on the card; "
             "pass device=\"cpu\" (--device=cpu on the command line) to run "
-            "it on the CPU")
+            "it on the CPU, or map with the exact host engine "
+            "(MapperConfig(device=False), --host)")
     return dev

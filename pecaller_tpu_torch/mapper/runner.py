@@ -5,9 +5,10 @@ decompression): <out>.pileup.gz, <out>.indel.txt.gz, <out>.summary.txt and
 per-fastq .mfile position dumps (pemapper.c:374-393, 775-781, 788-898).
 
 Counterpart of ``pecaller_tpu/mapper/runner.py``.  ``run_mapper`` picks
-the engine (the host oracle, or on a torch device the engine that
-``device_route`` names for the genome) and ``map_files`` runs the batch
-loop and the writers for a given engine.
+the engine: by default the one ``device_route`` names for the genome,
+on the card (the JAX runner maps on the host unless asked for its
+device path); the exact host engine only with ``device=False``.
+``map_files`` runs the batch loop and the writers for a given engine.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from .device_engine import DeviceMapperEngine
 from .device_map2 import FusedMapperEngine2
 from .device_pipeline import FusedMapperEngine
 from .engine import MapperEngine
+from .host_prep import _bucket_b
 
 _log = get_logger("mapper")
 
@@ -57,7 +59,9 @@ class MapperConfig:
     max_reads: int = 2 * 10**9
     nthreads: int = 2
     batch_size: int = 20000
-    device: bool = False      # True: the fused device engine (torch)
+    # True: the device route (``device_route``) on ``mapping_devices``;
+    # False: the exact host engine (f64 oracle) on the CPU
+    device: bool = True
     # pemapper_tsw extensions (pemapper_tsw.c): fixed trimming applied to
     # every read, and optional per-file output-group basenames that flush
     # and reset the pileup between groups (dump_output :848-962)
@@ -67,13 +71,13 @@ class MapperConfig:
     # batch-granular resumability (SURVEY §5.4): snapshot accumulated
     # pileup + stats after each completed fastq (pair); restart skips them
     checkpoint: bool = False
-    # device-mesh scale-out for the v2 fused engine: None = use every
-    # visible device (torch.cuda.device_count() on CUDA, 1 on the CPU; 1
-    # leaves the single-device step); reads shard over the mesh, each
-    # shard accumulating a pileup partial (the reference's per-directory
-    # SGE fan-out, map_directory_array.pl:101)
+    # device-mesh scale-out for the v2 fused engine: None = one shard a
+    # device of ``mapping_devices``, as many as divide every padded batch
+    # (``default_shards``; 1 leaves the single-device step); reads shard
+    # over the mesh, each shard accumulating a pileup partial (the
+    # reference's per-directory SGE fan-out, map_directory_array.pl:101)
     mesh_shards: int | None = None
-    # torch device of the device path; None: the first CUDA device
+    # torch device of the device route; None: every visible CUDA device
     torch_device: str | None = None
 
 
@@ -108,10 +112,29 @@ def device_route(genome_size: int, nbr_index=None, quarter_index=None):
         return "v1", None
 
 
+def default_shards(n_devices: int) -> int:
+    """Shards of the default reads mesh over ``n_devices`` devices: the
+    most, up to one a device, that divide every batch.  The v2 engine
+    pads a batch of any size to a power of two of at least
+    ``_bucket_b(1)`` pairs (512), so a count that divides that divides
+    every batch the CLI's ``--batch-size`` can give, a tail included."""
+    n = max(1, n_devices)
+    while _bucket_b(1) % n:
+        n -= 1
+    return n
+
+
 def device_mesh(cfg: MapperConfig, devices: list):
     """The reads-axis mesh of ``cfg.mesh_shards`` shards on ``devices``
-    (None: one shard a device), or None for one shard."""
-    n_sh = len(devices) if cfg.mesh_shards is None else cfg.mesh_shards
+    (None: ``default_shards``, one shard a device where they divide
+    every batch), or None for one shard."""
+    n_sh = cfg.mesh_shards
+    if n_sh is None:
+        n_sh = default_shards(len(devices))
+        if n_sh < len(devices):
+            event(_log, "engine", mesh_shards=n_sh, devices=len(devices),
+                  reason=f"{len(devices)} shards do not divide a batch "
+                         f"of {_bucket_b(1)} pairs")
     if n_sh <= 1:
         return None
     from ..parallel.mesh import make_mesh
@@ -142,9 +165,10 @@ def build_device_engine(cfg: MapperConfig, sdx, genome, index, base,
 
 
 def mapping_devices(cfg: MapperConfig, device=None) -> list:
-    """The torch devices of the device path: ``device`` (a device or a
-    list), else ``cfg.torch_device``, else every visible CUDA device
-    (at least one must exist: pass ``device="cpu"`` for the CPU)."""
+    """The torch devices of the device route: ``device`` (a device or a
+    list), else ``cfg.torch_device``, else every visible CUDA device.
+    Raises where none exists (pass ``device="cpu"`` for the CPU); never
+    falls back to the CPU."""
     if isinstance(device, (list, tuple)):
         return [resolve_device(d) for d in device]
     dev = resolve_device(cfg.torch_device if device is None else device)
@@ -156,16 +180,19 @@ def mapping_devices(cfg: MapperConfig, device=None) -> list:
 
 def run_mapper(cfg: MapperConfig, device=None) -> MapperEngine:
     """Map every fastq (pair) of ``cfg`` and write the artifacts.  With
-    ``cfg.device`` the fused engine runs on ``mapping_devices``: the v2
-    engine over a reads-axis mesh of ``cfg.mesh_shards`` shards (None:
-    one a device) where there is more than one."""
+    ``cfg.device`` (the default) the engine of ``device_route`` runs on
+    ``mapping_devices``: the v2 engine over a reads-axis mesh of
+    ``cfg.mesh_shards`` shards (None: ``default_shards``) where there is
+    more than one device; without a CUDA device (and no CPU asked for)
+    it raises.  The exact host engine maps only with ``cfg.device``
+    False."""
+    devices = mapping_devices(cfg, device) if cfg.device else None
     sdx = read_sdx(cfg.sdx_path)
     base = _strip_sdx(cfg.sdx_path)
     genome = read_seq(base + ".seq", sdx.genome_size)
     index = load_index(base)
     if cfg.device:
-        eng = build_device_engine(cfg, sdx, genome, index, base,
-                                  mapping_devices(cfg, device))
+        eng = build_device_engine(cfg, sdx, genome, index, base, devices)
     else:
         eng = MapperEngine(sdx, genome, index, bisulfite=cfg.bisulfite,
                            min_align=cfg.min_align, min_dist=cfg.min_dist,

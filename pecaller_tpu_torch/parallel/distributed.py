@@ -7,9 +7,12 @@ shared filesystem; here the processes join one torch.distributed group
 partition the work deterministically, preserving the reference's file
 formats so that the partial artifacts merge with the standard tools.
 
-Each process maps or calls on the device its runner picks; a launcher
-that gives each process its own card sets ``CUDA_VISIBLE_DEVICES``.
-``n_processes=1`` runs the same code path in one process.
+Each process maps on the card (the runner's device route) unless the
+configuration asks for the host engine or names a device: with several
+processes, process ``p`` takes ``cuda:{p % torch.cuda.device_count()}``
+(``process_device``); one process takes every visible card, as
+``run_mapper`` does.  The caller screens on the device its runner
+picks.  ``n_processes=1`` runs the same code path in one process.
 """
 
 from __future__ import annotations
@@ -159,11 +162,29 @@ def merge_caller_parts(cfg, num_processes: int) -> None:
                     max_cov)
 
 
+def process_device(cfg, process_id: int, num_processes: int):
+    """The ``torch_device`` of process ``process_id``'s mapping run:
+    ``cfg.torch_device`` where it names one (or where ``cfg.device`` is
+    False: the host engine); with several processes and none named, the
+    card ``process_id % torch.cuda.device_count()``, so that the
+    processes spread over the cards instead of each taking every card as
+    its reads mesh; None (every visible card) for one process.  Raises
+    where a card is needed and there is none."""
+    if cfg.torch_device is not None or not cfg.device or num_processes == 1:
+        return cfg.torch_device
+    import torch
+    from ..device import resolve_device
+    resolve_device(None)
+    return f"cuda:{process_id % torch.cuda.device_count()}"
+
+
 def run_mapper_distributed(cfg, coordinator=None, num_processes=None,
-                           process_id=None):
-    """Map this process's share of the fastq list; artifacts are written
-    with a per-process suffix and remain pipeline-compatible (the caller
-    scans a directory of pileups; the merger unions .base.gz files)."""
+                           process_id=None, device=None):
+    """Map this process's share of the fastq list on ``process_device``
+    (``device``, a device or a list, wins as in ``run_mapper``);
+    artifacts are written with a per-process suffix and remain
+    pipeline-compatible (the caller scans a directory of pileups; the
+    merger unions .base.gz files)."""
     from dataclasses import replace
     from ..mapper.runner import run_mapper
     pid, n = init_distributed(coordinator, num_processes, process_id)
@@ -172,4 +193,6 @@ def run_mapper_distributed(cfg, coordinator=None, num_processes=None,
         return None
     local = replace(cfg, files1=files1, files2=files2,
                     out_base=cfg.out_base + (f".part{pid}" if n > 1 else ""))
-    return run_mapper(local)
+    if device is None:
+        local.torch_device = process_device(cfg, pid, n)
+    return run_mapper(local, device=device)

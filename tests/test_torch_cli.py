@@ -1,7 +1,10 @@
 """The port's command line (pecaller_tpu_torch/cli.py) against the JAX
 package's (pecaller_tpu/cli.py): every stage parses its argv into the
 same configuration (field by field; the port's extra field names the
-torch device), and the stages' outputs on tiny inputs are equal:
+torch device, and the mappers' ``device`` is the port's own default:
+the device route unless ``--host``, where the JAX command line maps on
+the host unless ``--device``), and the stages' outputs on tiny inputs
+are equal:
 the cohort tail on .golden/cohort_tail's files, `map_directory` and
 `call_directory` on a small directory, `merge_dir_fa` modulo the date
 in its output's name.  (`index_genome`, `pemapper`, `pemapper_tsw`,
@@ -40,17 +43,33 @@ def _read(path):
 
 def _configs(monkeypatch, argv):
     """The configurations the JAX and the port's command lines hand their
-    runners for ``argv`` (the runners not run)."""
+    runners for ``argv`` (the runners not run; the JAX command line
+    without the port's own flags, --host and --device=DEV)."""
     got = {}
-    for key, mods, main in (
-            ("jax", (pecaller_tpu.mapper, pecaller_tpu.caller), jax_main),
+    jax_argv = [a for a in argv
+                if a != "--host" and not a.startswith("--device=")]
+    for key, mods, main, args in (
+            ("jax", (pecaller_tpu.mapper, pecaller_tpu.caller), jax_main,
+             jax_argv),
             ("port", (pecaller_tpu_torch.mapper.runner,
-                      pecaller_tpu_torch.caller), port_main)):
+                      pecaller_tpu_torch.caller), port_main, argv)):
         for mod, fn in zip(mods, ("run_mapper", "run_caller")):
             monkeypatch.setattr(mod, fn, lambda cfg, k=key: got.update(
                 {k: cfg}))
-        assert main(argv) == 0
+        assert main(args) == 0
     return got["jax"], got["port"]
+
+
+def _same_config(jcfg, pcfg, argv):
+    """Every field of the JAX configuration equal in the port's, but a
+    mapper's ``device``: the port maps on the device route unless
+    --host (the JAX package on the host unless --device)."""
+    mapper = isinstance(pcfg, pecaller_tpu_torch.mapper.runner.MapperConfig)
+    for f in dataclasses.fields(jcfg):
+        if mapper and f.name == "device":
+            assert pcfg.device == ("--host" not in argv)
+            continue
+        assert getattr(pcfg, f.name) == getattr(jcfg, f.name), f.name
 
 
 def _lists(d):
@@ -86,31 +105,58 @@ PEMAPPER = ["out", "g.sdx", "p", "r1.fastq", "r2.fastq", "500", "0", "n",
      "2", "n"],
     ["call_directory", "calls/", "g.sdx"],
     ["call_directory", "calls", "g.sdx", "regions.bed", "trio.ped"],
+    pytest.param(["pemapper", *PEMAPPER, "--device=cpu"],
+                 id="pemapper-p-device-cpu"),
+    pytest.param(["pemapper", *PEMAPPER, "--host"], id="pemapper-p-host"),
+    pytest.param(["pemapper_tsw", "o", "g.sdx", "s", "r.fq", "n", "0.9", "2",
+                  "50", "1", "2", "--host"], id="pemapper_tsw-s-host"),
 ], ids=lambda a: "-".join(a[:1] + a[3:4]))
 def test_configs_equal_jax(tmp_path, monkeypatch, argv):
     monkeypatch.chdir(tmp_path)
     _lists(tmp_path)
     jcfg, pcfg = _configs(monkeypatch, argv)
-    for f in dataclasses.fields(jcfg):
-        assert getattr(pcfg, f.name) == getattr(jcfg, f.name), f.name
+    _same_config(jcfg, pcfg, argv)
     extra = {f.name for f in dataclasses.fields(pcfg)} - \
         {f.name for f in dataclasses.fields(jcfg)}
-    assert {k: getattr(pcfg, k) for k in extra} == \
-        {k: PORT_ONLY[k] for k in extra}
+    want = {k: PORT_ONLY[k] for k in extra}
+    if "--device=cpu" in argv:
+        want["torch_device"] = "cpu"
+    assert {k: getattr(pcfg, k) for k in extra} == want
 
 
-def test_map_directory_config_equals_jax(tmp_path, monkeypatch):
+@pytest.mark.parametrize("flags", [[], ["--host"], ["--device=cpu"],
+                                   ["--device"]],
+                         ids=["default", "host", "device-cpu", "device"])
+def test_map_directory_config_equals_jax(tmp_path, monkeypatch, flags):
     d = tmp_path / "fq"
     os.makedirs(d)
     for f in ("x_1_a.fastq", "x_2_a.fastq", "y_R1_b.fastq.gz",
               "y_R2_b.fastq.gz", "solo.fastq", "solo.fastq.mfile",
               "notes.txt"):
         (d / f).touch()
-    jcfg, pcfg = _configs(monkeypatch, ["map_directory", str(d) + "/",
-                                        "g.sdx"])
-    for f in dataclasses.fields(jcfg):
-        assert getattr(pcfg, f.name) == getattr(jcfg, f.name), f.name
+    argv = ["map_directory", str(d) + "/", "g.sdx", *flags]
+    jcfg, pcfg = _configs(monkeypatch, argv)
+    _same_config(jcfg, pcfg, argv)
     assert pcfg.paired and len(pcfg.files1) == 3
+    assert pcfg.torch_device == ("cpu" if "--device=cpu" in flags else None)
+
+
+@pytest.mark.parametrize("argv", [
+    ["pemapper", *PEMAPPER, "--host", "--device"],
+    ["pemapper", *PEMAPPER, "--device=cpu", "--host"],
+    ["pemapper_tsw", "o", "g.sdx", "s", "r.fq", "n", "0.9", "2", "50", "1",
+     "2", "--host", "--device=cpu"],
+    ["map_directory", "fq/", "g.sdx", "--device", "--host"],
+], ids=["pemapper", "pemapper-cpu", "pemapper_tsw", "map_directory"])
+def test_host_with_device_is_a_usage_error(tmp_path, monkeypatch, capsys,
+                                           argv):
+    """--host and --device[=DEV] together: exit code 2 and a message,
+    before any file is read."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(pecaller_tpu_torch.mapper.runner, "run_mapper",
+                        lambda cfg: pytest.fail("the mapper ran"))
+    assert port_main(argv) == 2
+    assert "--host" in capsys.readouterr().err
 
 
 def test_device_flags(tmp_path, monkeypatch):
@@ -211,7 +257,8 @@ def test_cohort_stages_equal_jax(tmp_path, monkeypatch, capsys, argv,
 
 
 def test_map_and_call_directory_equal_jax(tmp_path, monkeypatch):
-    """map_directory on two read pairs of .golden/map_paired, then
+    """map_directory on two read pairs of .golden/map_paired (the port's
+    device route on the CPU, the JAX package's host engine), then
     call_directory on three pileups of .golden/call_3samp (the port's
     screen on the CPU): the JAX and the port's artifacts, each run in
     the same directory."""
@@ -233,7 +280,7 @@ def test_map_and_call_directory_equal_jax(tmp_path, monkeypatch):
     got = {}
     for key, main, extra in (("jax", jax_main, []),
                              ("port", port_main, ["--device=cpu"])):
-        assert main(["map_directory", "fq/", "g.sdx"]) == 0
+        assert main(["map_directory", "fq/", "g.sdx", *extra]) == 0
         assert main(["call_directory", "calls/", "cg.sdx", *extra]) == 0
         got[key] = {}
         for out in sorted(glob.glob("fq.*") + glob.glob("calls.*")):

@@ -16,6 +16,8 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
+import torch
 
 import torch_util  # noqa: F401  (one torch thread a worker)
 from pecaller_tpu.parallel import distributed as jdist
@@ -182,3 +184,50 @@ def test_partitions_match_jax():
                 assert (tdist.partition_genome(gs, pid, n, align)
                         == jdist.partition_genome(gs, pid, n, align))
     assert tdist.init_distributed() == (0, 1)
+
+
+@pytest.mark.parametrize("cards", [1, 3, 4])
+def test_process_takes_its_card(monkeypatch, cards):
+    """run_mapper_distributed's devices, resolved without mapping
+    (torch.cuda.device_count patched to ``cards``): with several
+    processes and no device named, process p maps on cuda:{p % cards};
+    one process takes every card; a named torch_device wins; the host
+    engine (device=False) takes none.  Without CUDA, the device route
+    raises "no CUDA device"."""
+    from dataclasses import replace
+    from pecaller_tpu_torch.mapper.runner import mapping_devices
+    cfg = MapperConfig(out_base="o", sdx_path="g.sdx", paired=True,
+                       files1=["a"], files2=["b"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    for n in (2, 3, 4, 8):
+        for pid in range(n):
+            dev = tdist.process_device(cfg, pid, n)
+            assert dev == f"cuda:{pid % cards}"
+            assert mapping_devices(replace(cfg, torch_device=dev)) == \
+                [torch.device("cuda", pid % cards)]
+            assert tdist.process_device(
+                replace(cfg, torch_device="cpu"), pid, n) == "cpu"
+            assert tdist.process_device(
+                replace(cfg, device=False), pid, n) is None
+    assert tdist.process_device(cfg, 0, 1) is None
+    assert mapping_devices(cfg) == [torch.device("cuda", i)
+                                    for i in range(cards)]
+    # run_mapper_distributed as process 1 of 2, the runner not run: its
+    # card, or the devices the caller names
+    import pecaller_tpu_torch.mapper.runner as runner
+    got = []
+    monkeypatch.setattr(tdist, "init_distributed", lambda *a: (1, 2))
+    monkeypatch.setattr(runner, "run_mapper",
+                        lambda local, device=None: got.append(
+                            (local.torch_device, device, local.out_base)))
+    two = [torch.device("cpu")] * 2
+    tdist.run_mapper_distributed(replace(cfg, files1=["a", "c"],
+                                         files2=["b", "d"]))
+    tdist.run_mapper_distributed(replace(cfg, files1=["a", "c"],
+                                         files2=["b", "d"]), device=two)
+    assert got == [(f"cuda:{1 % cards}", None, "o.part1"),
+                   (None, two, "o.part1")]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tdist.process_device(cfg, 1, 2)

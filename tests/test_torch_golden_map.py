@@ -1,9 +1,11 @@
 """The port's mapping and indexing stages against the C reference's own
 outputs, committed under .golden/: `pemapper` on map_single, map_paired
-(with the host engine, and with the fused device engine on the CPU,
-`--device=cpu`) and map_array, and `pemapper_tsw` on map_tsw, each
-with the argv tests/test_mapper.py and tests/test_misc.py gave the C
-binaries (index_genome: tests/test_torch_golden_index.py).
+and map_array, and `pemapper_tsw` on map_tsw, each with the argv
+tests/test_mapper.py and tests/test_misc.py gave the C binaries and one
+of the port's two routes: `--host` (the exact host engine) and
+`--device=cpu` (the device route, here the v2 engine on the nbr index,
+on the CPU; without a flag the port maps on the card).
+(index_genome: tests/test_torch_golden_index.py.)
 
 Every input is copied to a fresh directory first (the mapper writes each
 .mfile beside its fastq; the goldens are read, never written), and the
@@ -50,19 +52,23 @@ def _same_mapping(work, ref_dir, ours, ref, fastqs):
             _read(os.path.join(ref_dir, fq + ".mfile")), fq
 
 
+_SINGLE = ["ours", "g.sdx", "s", "reads.fastq", "n", "0.9", "2", "100000"]
+_PAIRED = ["ours", "g.sdx", "p", "r1.fastq", "r2.fastq", "500", "0", "n",
+           "0.9", "2", "100000"]
+_ARRAY = ["ours", "g.sdx", "pa", "list1.txt", "list2.txt", "500", "0", "n",
+          "0.9", "2", "100000"]
+_ARRAY_FQ = ["p1_1.fastq", "p2_1.fastq", "p1_2.fastq", "p2_2.fastq"]
+
+
 @pytest.mark.parametrize("name,argv,fastqs", [
-    ("map_single", ["ours", "g.sdx", "s", "reads.fastq", "n", "0.9", "2",
-                    "100000"], ["reads.fastq"]),
-    ("map_paired", ["ours", "g.sdx", "p", "r1.fastq", "r2.fastq", "500",
-                    "0", "n", "0.9", "2", "100000"],
-     ["r1.fastq", "r2.fastq"]),
-    ("map_paired", ["ours", "g.sdx", "p", "r1.fastq", "r2.fastq", "500",
-                    "0", "n", "0.9", "2", "100000", "--device=cpu"],
-     ["r1.fastq", "r2.fastq"]),
-    ("map_array", ["ours", "g.sdx", "pa", "list1.txt", "list2.txt", "500",
-                   "0", "n", "0.9", "2", "100000"],
-     ["p1_1.fastq", "p2_1.fastq", "p1_2.fastq", "p2_2.fastq"]),
-], ids=["single", "paired", "paired-device-cpu", "array"])
+    ("map_single", _SINGLE + ["--host"], ["reads.fastq"]),
+    ("map_paired", _PAIRED + ["--host"], ["r1.fastq", "r2.fastq"]),
+    ("map_paired", _PAIRED + ["--device=cpu"], ["r1.fastq", "r2.fastq"]),
+    ("map_array", _ARRAY + ["--host"], _ARRAY_FQ),
+    ("map_single", _SINGLE + ["--device=cpu"], ["reads.fastq"]),
+    ("map_array", _ARRAY + ["--device=cpu"], _ARRAY_FQ),
+], ids=["single", "paired", "paired-device-cpu", "array",
+        "single-device-cpu", "array-device-cpu"])
 def test_pemapper_matches_the_c_goldens(tmp_path, monkeypatch, name, argv,
                                         fastqs):
     src = _copy(name, tmp_path)
@@ -71,12 +77,14 @@ def test_pemapper_matches_the_c_goldens(tmp_path, monkeypatch, name, argv,
     _same_mapping(tmp_path, src, "ours", "ref", fastqs)
 
 
-def test_pemapper_tsw_matches_the_c_goldens(tmp_path, monkeypatch):
+@pytest.mark.parametrize("route", ["--host", "--device=cpu"],
+                         ids=["host", "device-cpu"])
+def test_pemapper_tsw_matches_the_c_goldens(tmp_path, monkeypatch, route):
     src = _copy("map_tsw", tmp_path)
     monkeypatch.chdir(tmp_path)
     assert cli_main(["pemapper_tsw", "unused", "g.sdx", "pa", "l1.txt",
                      "l2.txt", "500", "0", "n", "0.9", "2", "100000", "3",
-                     "4"]) == 0
+                     "4", route]) == 0
     for grp in ("grp1", "grp2"):
         _same_mapping(tmp_path, src, grp, f"ref_{grp}", [])
     assert not os.path.exists(tmp_path / "unused.pileup.gz")

@@ -145,6 +145,45 @@ def test_run_mapper_mesh_matches_single(data, tmp_path):
     assert outs[4] == outs[1]
 
 
+@pytest.mark.parametrize("n_dev,n_sh", [(4, 4), (3, 2)])
+def test_run_mapper_default_mesh_divides_every_batch(data, tmp_path,
+                                                     monkeypatch, n_dev,
+                                                     n_sh):
+    """``pemapper ... --batch-size 600`` through run_mapper over n_dev
+    CPU devices with the default reads mesh (``mesh_shards`` None):
+    batches of 600 and 300 pairs, padded to 1024 and 512.  One shard a
+    device where that count divides every padded batch (4), else the
+    most that do (3 devices: 2 shards, said in an ``engine`` event;
+    nothing raises); the artifacts byte-equal to one device's run."""
+    from pecaller_tpu_torch.cli import parse_pemapper
+    from pecaller_tpu_torch.mapper import runner
+    assert [runner.default_shards(n) for n in range(1, 10)] == \
+        [1, 2, 2, 4, 4, 4, 4, 8, 8]
+    events = []
+    monkeypatch.setattr(runner, "event",
+                        lambda log, kind, **kw: events.append((kind, kw)))
+    outs = {}
+    for devs in ([CPU], [CPU] * n_dev):
+        d = tmp_path / f"dev{len(devs)}"
+        d.mkdir()
+        for r in ("r1.fastq", "r2.fastq"):
+            shutil.copy(data / r, d / r)
+        cfg = parse_pemapper([str(d / "out"), str(data / "g.sdx"), "p",
+                              str(d / "r1.fastq"), str(d / "r2.fastq"),
+                              "500", "0", "n", "0.9", "3", "2000000000",
+                              "--batch-size", "600"])
+        assert cfg.device and cfg.mesh_shards is None
+        eng = run_mapper(cfg, device=devs)
+        outs[len(devs)] = _artifacts(str(d / "out"), d)
+    assert eng._n_sh == n_sh and len(eng.states) == n_sh
+    assert eng.mesh_timing["batches"] == 2
+    shrunk = [(kw["mesh_shards"], kw["devices"]) for kind, kw in events
+              if kind == "engine" and "mesh_shards" in kw]
+    assert shrunk == ([] if n_sh == n_dev else [(n_sh, n_dev)])
+    assert outs[1][".summary.txt"].count(b"\n") > 5
+    assert outs[n_dev] == outs[1]
+
+
 def test_screen_mesh_matches_single_and_jax():
     """CallerScreen over a 2-device mesh: the same codes as the unsharded
     screen (sites split into contiguous parts, one a device), and the

@@ -186,24 +186,125 @@ def test_run_mapper_v1_route_matches_jax(data, tmp_path, monkeypatch):
         assert outs["port"][k] == v, k
 
 
-def test_device_path_needs_cuda_unless_asked(data, tmp_path):
-    """Without a CUDA device, run_mapper and --device raise; the caller
-    names the CPU to run the device path there."""
+def _pair_dir(data, d):
+    """A directory of two read pairs for map_directory: data's pairs
+    split in two, named as map_directory_array.pl pairs them."""
+    d.mkdir()
+    for e in (1, 2):
+        with open(data / f"r{e}.fastq") as f:
+            lines = f.readlines()
+        half = 4 * (len(lines) // 8)
+        for name, part in (("a", lines[:half]), ("b", lines[half:])):
+            with open(d / f"{name}_{e}_x.fastq", "w") as f:
+                f.writelines(part)
+    return d
+
+
+_RUN_MAPPER = """
+import sys
+from pecaller_tpu_torch.mapper.runner import MapperConfig, run_mapper
+run_mapper(MapperConfig(out_base=sys.argv[1], sdx_path=sys.argv[2],
+                        paired=True, files1=[sys.argv[3]],
+                        files2=[sys.argv[4]], max_dist=500, nthreads=2))
+"""
+
+
+@pytest.mark.parametrize("how", ["pemapper", "pemapper-bare-device",
+                                 "pemapper_tsw", "map_directory",
+                                 "run_mapper"])
+def test_device_path_needs_cuda_unless_asked(data, tmp_path, how):
+    """Without a CUDA device the mapper's entry points raise "no CUDA
+    device" in process and through ``python -m pecaller_tpu_torch``
+    (``run_mapper``: ``python -c``) where the caller names neither the
+    CPU nor the host engine: no flag, a bare --device, and a
+    MapperConfig without ``device=``.  Nothing falls back to the host
+    engine or the CPU: no artifact is written."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device exists here")
+    from pecaller_tpu_torch.cli import main as cli_main
     from pecaller_tpu_torch.cli import parse_pemapper
+    sdx = str(data / "g.sdx")
     r1, r2 = _reads_copy(data, tmp_path / "nocuda")
-    argv = [str(tmp_path / "nocuda" / "out"), str(data / "g.sdx"), "p", r1,
-            r2, "500", "0", "n", "0.9", "3", "100", "--device"]
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        run_mapper(parse_pemapper(argv))
-    cfg = parse_pemapper(argv[:-1] + ["--device=cpu"])
-    assert (cfg.device, cfg.torch_device) == (True, "cpu")
+    out = str(tmp_path / "nocuda" / "out")
+    pe = [out, sdx, "p", r1, r2, "500", "0", "n", "0.9", "3", "100"]
+    argv = {"pemapper": ["pemapper", *pe],
+            "pemapper-bare-device": ["pemapper", *pe, "--device"],
+            "pemapper_tsw": ["pemapper_tsw", *pe, "0", "0"],
+            "map_directory": ["map_directory",
+                              str(_pair_dir(data, tmp_path / "fq")), sdx],
+            "run_mapper": None}[how]
+    if argv is None:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run_mapper(MapperConfig(out_base=out, sdx_path=sdx, paired=True,
+                                    files1=[r1], files2=[r2], max_dist=500,
+                                    nthreads=2))
+        cmd = ["-c", _RUN_MAPPER, out, sdx, r1, r2]
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli_main(argv)
+        cmd = ["-m", "pecaller_tpu_torch", *argv]
     env = dict(os.environ, OMP_NUM_THREADS="1")
-    res = subprocess.run(
-        [sys.executable, "-m", "pecaller_tpu_torch", "pemapper", *argv],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    res = subprocess.run([sys.executable, *cmd], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
     assert res.returncode != 0 and "no CUDA device" in res.stderr
+    assert not [f for f in tmp_path.rglob("*")
+                if f.name.endswith((".mfile", ".txt.gz", ".pileup.gz"))]
+    cfg = parse_pemapper(pe + ["--device=cpu"])
+    assert (cfg.device, cfg.torch_device) == (True, "cpu")
+
+
+def _route_artifacts(base, fastqs):
+    """A run's artifacts by extension and .mfile name (gzip decompressed)."""
+    got = {}
+    for ext in (".pileup.gz", ".indel.txt.gz", ".summary.txt"):
+        with open(base + ext, "rb") as f:
+            got[ext] = f.read()
+    for fq in fastqs:
+        with open(fq + ".mfile", "rb") as f:
+            got[os.path.basename(fq)] = f.read()
+    return {k: gzip.decompress(v) if k.endswith(".gz") else v
+            for k, v in got.items()}
+
+
+@pytest.mark.parametrize("command", ["pemapper", "map_directory"])
+def test_host_and_device_routes_agree(data, tmp_path, monkeypatch,
+                                      command):
+    """``--host`` builds the exact host engine (MapperEngine) and
+    ``--device=cpu`` the device route (the v2 engine on the nbr index,
+    on the CPU); their artifacts (.pileup.gz, .indel.txt.gz,
+    .summary.txt and every .mfile) are byte-equal.  ``map_directory``
+    on a directory of two read pairs."""
+    from pecaller_tpu_torch.cli import main as cli_main
+    from pecaller_tpu_torch.mapper import runner
+    from pecaller_tpu_torch.mapper.engine import MapperEngine as HostEngine
+    built = []
+    run = runner.run_mapper
+    monkeypatch.setattr(runner, "run_mapper",
+                        lambda cfg: built.append((cfg, run(cfg))))
+    outs = {}
+    for flag in ("--host", "--device=cpu"):
+        d = tmp_path / flag.strip("-").replace("=", "_")
+        if command == "pemapper":
+            r1, r2 = _reads_copy(data, d)
+            base = str(d / "out")
+            argv = [base, str(data / "g.sdx"), "p", r1, r2, "500", "0", "n",
+                    "0.9", "3", "2000000000", "--batch-size", "600"]
+            fastqs = [r1, r2]
+        else:
+            fq = _pair_dir(data, d)
+            base = str(fq)
+            argv = [base + "/", str(data / "g.sdx")]
+            fastqs = sorted(str(fq / f) for f in os.listdir(fq))
+        assert cli_main([command, *argv, flag]) == 0
+        outs[flag] = _route_artifacts(base, fastqs)
+    (hcfg, host), (dcfg, dev) = built
+    assert not hcfg.device and type(host) is HostEngine
+    assert (dcfg.device, dcfg.torch_device) == (True, "cpu")
+    assert isinstance(dev, FusedMapperEngine2) and dev.device == CPU
+    assert dev.state.dnbr.mode != "quarter"
+    assert len(outs["--host"]) == (5 if command == "pemapper" else 7)
+    assert outs["--host"][".summary.txt"].count(b"\n") > 5
+    assert outs["--device=cpu"] == outs["--host"]
 
 
 @pytest.fixture(scope="module")
