@@ -119,7 +119,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
      each shard's step a graph: all five artifacts byte-equal to the
      host oracle, K1 and K2 counted once a batch a shard;
      graph_vs_eager against the eager 2-shard engine, with
-     mesh_timing's dispatch and fetch ms a batch (phase 4 has one
+     the spans' dispatch and fetch ms a batch (phase 4 has one
      device's reads/s); phase 8's cohort with CallerConfig(mesh=2
      shards on cuda:0, host_screen=False) byte-equal to the exact
      engine, sites/s
@@ -1148,6 +1148,20 @@ def _raw_outputs(eng, batches):
     return [[fetched(h)] for h in pend]
 
 
+def _mesh_ms(done):
+    """A mesh engine's host ms a batch from the spans of a stretch
+    (``utils.log.spans_since``): staging and enqueuing the shards
+    (dispatch), waiting for their results (fetch); empty off a mesh."""
+    n = done.get("engine.enqueue.dispatch", (0, 0.0))[0]
+    if not n:
+        return {}
+    return dict(
+        mesh_dispatch_ms_per_batch=1e3 * done["engine.enqueue.dispatch"][1]
+        / n,
+        mesh_fetch_ms_per_batch=1e3 * done.get("engine.resolve.wait",
+                                               (0, 0.0))[1] / n)
+
+
 def _replay_ms(eng, dev, reps=5):
     """Device ms of one batch's graph (a reads mesh: every shard's, in
     shard order; a genome mesh: its program's graphs and copies on every
@@ -1187,6 +1201,7 @@ def graph_vs_eager(graphed, eager, batches, dev, n_check=3):
     import numpy as np
     import torch
     from pecaller_tpu_torch.mapper.program import capture_stats
+    from pecaller_tpu_torch.utils.log import spans, spans_since
     got = _raw_outputs(graphed, batches[:n_check])
     want = _raw_outputs(eager, batches[:n_check])
     for i, (a, b) in enumerate(zip(got, want)):
@@ -1197,9 +1212,7 @@ def graph_vs_eager(graphed, eager, batches, dev, n_check=3):
         raise AssertionError("graph=False captured a graph")
     out = {"bitwise_batches": n_check}
     for name, eng in (("eager", eager), ("graph", graphed)):
-        mt = getattr(eng, "mesh_timing", None)
-        if mt is not None:
-            mt.update(dispatch_s=0.0, fetch_s=0.0, batches=0)
+        before = spans()
         resident = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         rates, how, per_batch = _rates(eng, batches,
@@ -1211,11 +1224,7 @@ def graph_vs_eager(graphed, eager, batches, dev, n_check=3):
                  peak_above_resident=torch.cuda.max_memory_allocated(dev)
                  - resident,
                  memory_reserved=torch.cuda.memory_reserved(dev))
-        if mt is not None and mt["batches"] and getattr(eng, "_mesh", None):
-            r.update(mesh_dispatch_ms_per_batch=1e3 * mt["dispatch_s"]
-                     / mt["batches"],
-                     mesh_fetch_ms_per_batch=1e3 * mt["fetch_s"]
-                     / mt["batches"])
+        r.update(_mesh_ms(spans_since(before)))
         out[name] = r
     out["graph"].update(capture_stats(graphed.programs),
                         replay_ms_per_batch=_replay_ms(graphed, dev))
@@ -1915,79 +1924,6 @@ def human_counts(gs=HUMAN_LEN, edges=(2 ** 30, 2 ** 31), split_pools=None):
     torch.cuda.empty_cache()
 
 
-def profile_v1(n_pairs, n_batches=2):
-    """--profile: torch.profiler over v1 batches after a warm one, no
-    comparisons.  Prints host and device ms per batch of each step stage
-    (profiler ranges "v1.*"), device kernels per batch, and the ops with
-    the most device and host time; the tables go to
-    chiprun_out/profile_v1.txt."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from pecaller_tpu_torch.formats.index_files import load_index
-    from pecaller_tpu_torch.formats.sdx import read_sdx, read_seq
-    from pecaller_tpu_torch.mapper.device_pipeline import FusedMapperEngine
-    make_data(n_pairs)
-    dev = torch.device("cuda", 0)
-    sdx = read_sdx(os.path.join(DATA, "g.sdx"))
-    eng = FusedMapperEngine(
-        sdx, read_seq(os.path.join(DATA, "g.seq"), sdx.genome_size),
-        load_index(os.path.join(DATA, "g")), device=dev, paired=True,
-        min_align=0.9, min_dist=0, max_dist=500,
-        nthreads=os.cpu_count() or 2, graph=False)   # ranges show eager
-    batches = _batches(n_pairs)[:n_batches + 1]
-
-    def run(bs):
-        for s1, l1, s2, l2, nos in bs:
-            eng.resolve(eng.map_batch_async(s1, l1, s2, l2, read_nos=nos))
-        torch.cuda.synchronize(dev)
-
-    run(batches[:1])
-    t0 = time.time()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run(batches[1:])
-    wall = time.time() - t0
-    ka = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "device_time_total",
-                       getattr(e, "cuda_time_total", 0))
-
-    def self_dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-    nb = len(batches) - 1
-    # a range "v1.*" appears twice: as the host range (host time, and the
-    # device time of the kernels launched in it) and as the card's
-    # annotation (its span on the card's timeline, idle gaps included)
-    stages = {}
-    for e in ka:
-        if e.key.startswith("v1."):
-            s = stages.setdefault(e.key, {})
-            if e.cpu_time_total > 0:
-                s.update(host_ms=e.cpu_time_total / 1e3 / nb,
-                         kernel_ms=dev_us(e) / 1e3 / nb, calls=e.count // nb)
-            else:
-                s.update(device_span_ms=self_dev_us(e) / 1e3 / nb)
-    def on_card(e):             # kernels and copies, not the annotations
-        return (str(getattr(e, "device_type", "")).endswith("CUDA")
-                and not e.key.startswith("v1."))
-    ka_ops = [e for e in ka if not e.key.startswith("v1.")]
-    kernels = [e for e in prof.events() if on_card(e)]
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "profile_v1.txt"), "w") as f:
-        f.write(ka.table(sort_by="self_cuda_time_total", row_limit=40))
-        f.write(ka.table(sort_by="self_cpu_time_total", row_limit=40))
-    say("profile_v1", batches=nb, wall_ms_per_batch=1e3 * wall / nb,
-        device_ms_per_batch=sum(self_dev_us(e) for e in ka if on_card(e))
-        / 1e3 / nb,
-        device_events_per_batch=len(kernels) / nb, stages=stages,
-        top_device=[(e.key, self_dev_us(e) / 1e3 / nb) for e in sorted(
-            ka_ops, key=self_dev_us, reverse=True)[:12]],
-        top_host=[(e.key, e.self_cpu_time_total / 1e3 / nb) for e in sorted(
-            ka, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]])
-
-
 # ---------------------------------------------------------------------------
 # the caller (phases 8 and 8b)
 
@@ -2676,6 +2612,7 @@ def _genome_mesh_cards(engine, one, batches, want, n_pairs, sdx, genome):
     import torch
     from pecaller_tpu_torch import cli
     from pecaller_tpu_torch.mapper.runner import map_files
+    from pecaller_tpu_torch.utils.log import spans, spans_since
     cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
     # cuda:0 still holds the one-card engine
     resident = {c: torch.cuda.memory_allocated(c) for c in cards}
@@ -2701,17 +2638,15 @@ def _genome_mesh_cards(engine, one, batches, want, n_pairs, sdx, genome):
     program = _mesh_program(eng)
     if program["copies_a_batch"] != 2 * 13 + 1:
         raise AssertionError(f"the two-card program's layout: {program}")
-    eng.mesh_timing.update(dispatch_s=0.0, fetch_s=0.0, batches=0)
+    before = spans()
     rates, how, per_batch = _rates(eng, batches)
-    mt = eng.mesh_timing
+    mesh_ms = _mesh_ms(spans_since(before))
     out = dict(ran=True, devices=[str(c) for c in cards],
                byte_equal=sorted(want), bitwise_to_one_card_batches=3,
                reads_per_s=rates[len(rates) // 2], reads_per_s_passes=rates,
                spread=_spread(rates), passes=how,
                host_ms_per_batch={k: 1e3 * v for k, v in per_batch.items()},
-               mesh_dispatch_ms_per_batch=1e3 * mt["dispatch_s"]
-               / mt["batches"],
-               mesh_fetch_ms_per_batch=1e3 * mt["fetch_s"] / mt["batches"],
+               **mesh_ms,
                replay_ms_per_batch=_replay_ms(eng, cards[0]),
                program=program,
                peak_above_resident={
@@ -3325,8 +3260,6 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--pairs", type=int, default=100_000,
                     help="read pairs of the main-path runs")
-    ap.add_argument("--profile", action="store_true",
-                    help="profile v1 batches instead of the phases 3-5")
     ap.add_argument("--kernels", action="store_true",
                     help="phases 1-3 only (card, build, kernel check): "
                     "the kernels line with launches null, no result line")
@@ -3352,9 +3285,6 @@ def main():
         say("total", seconds=time.time() - t_start)
         return
     build(sass=args.kernels)
-    if args.profile:
-        profile_v1(args.pairs)
-        return
     kres = kernel_check()
     if args.kernels:
         launches = dict.fromkeys(REPLACES)

@@ -27,6 +27,7 @@ import numpy as np
 from ..formats.pileup import read_pileup
 from ..formats.sdx import read_sdx, find_chrom_caller
 from ..mapper.program import capture_stats
+from ..utils.log import span, spans, spans_since
 from .device_screen import BAD, EASY, HARD, UNRES, _phase0_tables
 from .device_beam import DeviceBeam, finish_f64
 from .native import load_pecall, pecall_sites
@@ -343,25 +344,10 @@ class _MemberGz:
         self._raw.close()
 
 
-class _Phase:
-    """Wall-clock seconds of each stage of a run (``run_caller``
-    returns them as ``phases``)."""
-
-    def __init__(self):
-        import collections
-        import time
-        self.t = collections.defaultdict(float)
-        self._time = time.time
-
-    def __call__(self, name):
-        import contextlib
-
-        @contextlib.contextmanager
-        def cm():
-            t0 = self._time()
-            yield
-            self.t[name] += self._time() - t0
-        return cm()
+def _phase(name: str):
+    """A stage of a caller run: the span ``caller.<name>``
+    (``run_caller`` returns each stage's seconds as ``phases``)."""
+    return span("caller." + name)
 
 
 def run_caller(cfg: CallerConfig):
@@ -430,11 +416,11 @@ def run_caller(cfg: CallerConfig):
         st.base_count = ck["base_count"]
         st.max_cov = ck["max_cov"]
     w = _SiteWriters(cfg, sample_names, resume_offsets=ro)
-    ph = _Phase()
+    before = spans()
     tally = dict(easy=0, bad=0, hard=0, native=0, beam=0, beam_flagged=0)
     ctx = dict(cfg=cfg, sdx=sdx, genome=genome, frag_pos=frag_pos,
                chrom_types=chrom_types, indiv=indiv, lib=lib, model=model,
-               screen=screen, beam=beam, ph=ph, tally=tally)
+               screen=screen, beam=beam, tally=tally)
 
     if cfg.guide_path is None:
         from concurrent.futures import ThreadPoolExecutor
@@ -475,7 +461,7 @@ def run_caller(cfg: CallerConfig):
             hi = lo + window
             if site_hi is not None:
                 hi = min(hi, site_hi)
-            with ph("read"):
+            with _phase("read"):
                 chunks = [f.result() for f in futs]
             exhausted = all(s.exhausted for s in streams)
             if not (exhausted and all(len(c[0]) == 0 for c in chunks)):
@@ -488,7 +474,7 @@ def run_caller(cfg: CallerConfig):
                     break
                 lo = hi
                 continue
-            with ph("merge"):
+            with _phase("merge"):
                 # window-bitmap union + dense scatter, threaded in C
                 # (native/screen.c merge_window)
                 offs = np.zeros(indiv + 1, np.int64)
@@ -520,7 +506,7 @@ def run_caller(cfg: CallerConfig):
             _process_window(ctx, w, st, all_pos, data, present, hap,
                             count_absent=False)
             if cfg.checkpoint:
-                with ph("ckpt"):
+                with _phase("ckpt"):
                     offs = w.sync_offsets()
                     tmp = ck_path + ".tmp"
                     with open(tmp, "wb") as f:
@@ -546,7 +532,7 @@ def run_caller(cfg: CallerConfig):
 
     w.close()
     if cfg.site_range is None:
-        with ph("dist"):
+        with _phase("dist"):
             _write_dist(cfg, sample_names, st.tot_bases, st.counts_hist,
                         st.mean_done(), st.base_count, st.max_cov)
     else:
@@ -558,7 +544,9 @@ def run_caller(cfg: CallerConfig):
     if cfg.checkpoint and os.path.exists(ck_path):
         os.remove(ck_path)
     return dict(n_sites=st.tot_bases, sample_names=sample_names,
-                phases=dict(ph.t),
+                phases={k[len("caller."):]: sec for k, (_, sec)
+                        in spans_since(before).items()
+                        if k.startswith("caller.")},
                 screen_sites=dict(screen.sites) if screen else None,
                 codes={k: tally[k] for k in ("easy", "bad", "hard")},
                 native_sites=tally["native"], beam_sites=tally["beam"],
@@ -642,7 +630,6 @@ def _process_window(ctx, w, st, all_pos, data, present, site_haploid,
     cfg, sdx = ctx["cfg"], ctx["sdx"]
     frag_pos = ctx["frag_pos"]
     indiv = ctx["indiv"]
-    ph = ctx.get("ph") or _Phase()
     n_sites = len(all_pos)
 
     which = find_chrom_caller(frag_pos, sdx.n_contigs,
@@ -668,7 +655,7 @@ def _process_window(ctx, w, st, all_pos, data, present, site_haploid,
             codes = bufs.codes[:n_sites]
             out_calls = bufs.calls[:n_sites]
             out_active = bufs.active[:n_sites]
-        with ph("screen"):
+        with _phase("screen"):
             presc = np.zeros(indiv, np.int64)
             ref_u8 = ref_int.astype(np.uint8)
             codes, out_calls, out_active = host_screen_stats(
@@ -679,7 +666,7 @@ def _process_window(ctx, w, st, all_pos, data, present, site_haploid,
             st.tot_bases += n_sites
             st.base_count += n_sites if count_absent else presc
     else:
-        with ph("stats"):
+        with _phase("stats"):
             # i32 is ample (6 * 65535 per site-sample) and halves the
             # memory traffic of the stats/easy passes on this host
             tot_cov = data.sum(axis=2, dtype=np.int32)  # (S, I) all 6
@@ -728,7 +715,7 @@ def _process_window(ctx, w, st, all_pos, data, present, site_haploid,
             # a device round trip (identical bytes either way — the
             # screen is conservative, native is exact)
             if screen is not None and len(un) * indiv > (1 << 16):
-                with ph("phase1"):
+                with _phase("phase1"):
                     c1 = screen.phase1(np.ascontiguousarray(data[un]),
                                        ref_u8[un], ctype[un])
                 codes[un] = c1
@@ -755,7 +742,7 @@ def _process_window(ctx, w, st, all_pos, data, present, site_haploid,
 
     if not host and screen is not None and len(cidx):
         all_callable = len(cidx) == n_sites
-        with ph("screen"):
+        with _phase("screen"):
             codes = screen(data if all_callable else data[cidx],
                            ref_int[cidx].astype(np.uint8),
                            ctype[cidx].astype(np.uint8))
@@ -767,7 +754,7 @@ def _process_window(ctx, w, st, all_pos, data, present, site_haploid,
         # threshold -> the exact beam keeps one config; posterior is
         # exactly 1.0, call = ref, site type REF (out_probs init 1.0,
         # out_types 0, out_acnt 0 already hold).
-        with ph("easy"):
+        with _phase("easy"):
             easy_m = codes == EASY
             if easy_m.any():
                 min_depth = 1 if cfg.haploid else 2
@@ -805,7 +792,7 @@ def _process_window(ctx, w, st, all_pos, data, present, site_haploid,
         # mode (guide-path chrY / MT) take the native engine.
         bsel = cidx[site_haploid[cidx] == hap_want]
         if len(bsel):
-            with ph("beam"):
+            with _phase("beam"):
                 n_cfg, cfgs, flags, _, _, hrank, hval = beam(
                     np.ascontiguousarray(data[bsel]),
                     ref_int[bsel].astype(np.uint8))
@@ -814,7 +801,7 @@ def _process_window(ctx, w, st, all_pos, data, present, site_haploid,
             tally["beam_flagged"] += int((~ok).sum())
             if ok.any():
                 sel = bsel[ok]
-                with ph("beam_finish"):
+                with _phase("beam_finish"):
                     # ctype: chrY sites are exempt from the <50%-of-
                     # samples-at-8x bad gate (pecaller.c:1303-1304)
                     fc, fp, ty, ac_, act_ = finish_f64(
@@ -832,7 +819,7 @@ def _process_window(ctx, w, st, all_pos, data, present, site_haploid,
                 cidx = np.setdiff1d(cidx, sel, assume_unique=True)
 
     tally["native"] += len(cidx)
-    with ph("native"):
+    with _phase("native"):
         for lo in range(0, len(cidx), cfg.chunk_sites):
             sel = cidx[lo:lo + cfg.chunk_sites]
             (out_calls[sel], out_probs[sel], out_types[sel],
@@ -841,7 +828,7 @@ def _process_window(ctx, w, st, all_pos, data, present, site_haploid,
                              ref_int[sel], ctype[sel], site_haploid[sel],
                              cfg.nthreads)
 
-    with ph("write"):
+    with _phase("write"):
         w.write_calls_window(sdx, which, contig_pos, refc, callable_m,
                              data, out_calls, out_probs, out_types,
                              out_denovo, out_acnt, out_active,

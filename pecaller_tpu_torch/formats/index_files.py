@@ -26,6 +26,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..utils.log import span
+
 KMER_SPACE = 1 << 32
 _CHUNK = 1 << 24          # buckets per streaming chunk when (de)serializing
 
@@ -179,6 +181,7 @@ def _sparsify_idx_stream(path: str) -> tuple[np.ndarray, np.ndarray]:
     return keys.astype(np.uint32), starts0
 
 
+@span("index.files.idx")
 def load_index(basename: str, cache: bool = True) -> SeedIndex:
     """Load a seed index into the sparse CSR form.
 

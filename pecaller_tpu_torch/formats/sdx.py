@@ -27,6 +27,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..utils.log import span
+
 _BIG = np.int64(2**62)
 
 
@@ -70,6 +72,7 @@ class SdxInfo:
         return self.stored_lens.astype(np.int64) + 15
 
 
+@span("index.files.sdx")
 def read_sdx(path: str) -> SdxInfo:
     names, lens = [], []
     with open(path, "r") as f:
@@ -91,6 +94,7 @@ def write_sdx(path: str, info: SdxInfo) -> None:
         f.write(f"{info.idepth}\n")
 
 
+@span("index.files.seq")
 def read_seq(path: str, genome_size: int | None = None) -> np.ndarray:
     """Read the gzip .seq genome into a uint8 byte array (ASCII codes)."""
     with gzip.open(path, "rb") as f:

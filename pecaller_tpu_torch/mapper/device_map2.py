@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import time
 import warnings
 from dataclasses import dataclass
 
@@ -42,6 +41,7 @@ from ..native.build import ptr as _ptr
 from ..ops import sw2
 from ..ops.encode import IDEPTH
 from ..ops.sw_cuda import sw_align_x, sw_traceback_rows
+from ..utils.log import span, stage
 from .engine import (
     MISALIGN_SLOP, NEITHER_MAP, NON_MATE, NON_MIS, NON_NO, UNIQUE_MATE,
     UNIQUE_MIS, UNIQUE_SINGLE, UNIQUE_SLIP, MapperEngine)
@@ -1055,261 +1055,273 @@ class FusedStep2(DecideLayer):
         gctx = state.gctx
         octile = self.dnbr.mode == "octile"
         c_shift = gctx[4] if octile else 0
-        lens = lens.to(I32)
-        # bit 30 of thr marks a boundary-ambiguous threshold
-        thr_amb = (thr & (1 << 30)) != 0
-        thr = thr & ((1 << 30) - 1)
-        xf, xr, skip, exotic = prep_reads_dev(seqs_u, lens)
-        x4f_w = pack4_dev(xf)
-        x4r_w = pack4_dev(xr)
+        with stage("step.seed"):
+            lens = lens.to(I32)
+            # bit 30 of thr marks a boundary-ambiguous threshold
+            thr_amb = (thr & (1 << 30)) != 0
+            thr = thr & ((1 << 30) - 1)
+            xf, xr, skip, exotic = prep_reads_dev(seqs_u, lens)
+            x4f_w = pack4_dev(xf)
+            x4r_w = pack4_dev(xr)
 
-        if octile:
-            hits, hits_off, orient, tot, fb = yield from self.seed_octile(
-                xf, xr, offsets, n_segs, mm0, skip, gctx)
-        else:
-            seed = (self.seed_quarter if self.dnbr.mode == "quarter"
-                    else self.seed_nbr)
-            hits, hits_off, orient, tot, fb = seed(xf, xr, offsets, n_segs,
-                                                   mm0, skip)
-        fb = pairize(fb | fb_pad | exotic)
-        tot = torch.where(fb, 0, tot)
-        # units whose hits spill past H_CAP fall back (cap semantics)
-        fb = pairize(fb | (torch.cumsum(tot.to(I64), 0) > H_CAP))
-        tot = torch.where(fb, 0, tot)
+            if octile:
+                hits, hits_off, orient, tot, fb = yield from self.seed_octile(
+                    xf, xr, offsets, n_segs, mm0, skip, gctx)
+            else:
+                seed = (self.seed_quarter if self.dnbr.mode == "quarter"
+                        else self.seed_nbr)
+                hits, hits_off, orient, tot, fb = seed(xf, xr, offsets, n_segs,
+                                                       mm0, skip)
+            fb = pairize(fb | fb_pad | exotic)
+            tot = torch.where(fb, 0, tot)
+            # units whose hits spill past H_CAP fall back (cap semantics)
+            fb = pairize(fb | (torch.cumsum(tot.to(I64), 0) > H_CAP))
+            tot = torch.where(fb, 0, tot)
 
-        # --- scatter-free slot compaction -------------------------------
-        idxc = self._ar(CAP, I32)[None, :]
-        validh = idxc < tot[:, None]
-        cu = torch.cumsum(tot.to(I64), 0)                 # inclusive
-        n_slots = cu[-1]
-        cu_excl = cu - tot
-        slot_tab = torch.where(validh, cu_excl[:, None] + idxc, H_CAP)
-        steps_u = _ceil_log2(U + 1)
-        sarange = self._ar(H_CAP)
-        rid_s = vsearch_ge(cu, sarange + 1, steps_u).clamp(0, U - 1)
-        slot_ok = sarange < n_slots
-        rid_c = torch.where(slot_ok, rid_s, 0)
-        hid_s = torch.where(slot_ok, sarange - cu_excl[rid_c], 0)
+        with stage("step.windows"):
+            # --- scatter-free slot compaction -----------------------------
+            idxc = self._ar(CAP, I32)[None, :]
+            validh = idxc < tot[:, None]
+            cu = torch.cumsum(tot.to(I64), 0)                 # inclusive
+            n_slots = cu[-1]
+            cu_excl = cu - tot
+            slot_tab = torch.where(validh, cu_excl[:, None] + idxc, H_CAP)
+            steps_u = _ceil_log2(U + 1)
+            sarange = self._ar(H_CAP)
+            rid_s = vsearch_ge(cu, sarange + 1, steps_u).clamp(0, U - 1)
+            slot_ok = sarange < n_slots
+            rid_c = torch.where(slot_ok, rid_s, 0)
+            hid_s = torch.where(slot_ok, sarange - cu_excl[rid_c], 0)
 
-        spots_s = torch.clamp(hits[rid_c, hid_s] - hits_off[rid_c, hid_s],
-                              min=0).to(I64)
-        lens_s = lens[rid_c]
-        start_s, blen_s = windows(st_pad, ist, spots_s, lens_s,
-                                  self.n_contigs, self.chrom_steps, c_shift)
-        blen_m = torch.where(slot_ok, blen_s, 0).to(I32)
-        refs_x, exo = fetch_windows(gcode, gmask, start_s.to(I64), blen_m, N)
-        ors_s = orient[rid_c, hid_s]
-        rw = torch.where((ors_s == 1)[:, None], x4r_w[rid_c], x4f_w[rid_c])
-        reads_s = unpack4(rw, M)
-        rlens_s = torch.where(slot_ok, lens_s, 1).to(I32)
+            spots_s = torch.clamp(hits[rid_c, hid_s] - hits_off[rid_c, hid_s],
+                                  min=0).to(I64)
+            lens_s = lens[rid_c]
+            start_s, blen_s = windows(st_pad, ist, spots_s, lens_s,
+                                      self.n_contigs, self.chrom_steps,
+                                      c_shift)
+            blen_m = torch.where(slot_ok, blen_s, 0).to(I32)
+            refs_x, exo = fetch_windows(gcode, gmask, start_s.to(I64),
+                                        blen_m, N)
+            ors_s = orient[rid_c, hid_s]
+            rw = torch.where((ors_s == 1)[:, None], x4r_w[rid_c], x4f_w[rid_c])
+            reads_s = unpack4(rw, M)
+            rlens_s = torch.where(slot_ok, lens_s, 1).to(I32)
 
-        score, bk, bi, tie_a = sw_align_x(refs_x, blen_m, reads_s, rlens_s,
-                                          bisulfite=self.bisulfite,
-                                          n_rows=R_ROWS)
+        with stage("step.align"):
+            score, bk, bi, tie_a = sw_align_x(refs_x, blen_m, reads_s, rlens_s,
+                                              bisulfite=self.bisulfite,
+                                              n_rows=R_ROWS)
 
-        pad1 = torch.full((1,), PAD_SCORE, dtype=I32, device=self.dev)
-        score_pad = torch.cat([torch.where(slot_ok, score, PAD_SCORE).to(I32),
-                               pad1])
-        smax = score_pad[slot_tab]                        # (U, CAP)
-        pos_tab = torch.cat([spots_s, torch.zeros(1, dtype=spots_s.dtype,
-                                                  device=self.dev)])[slot_tab]
+            pad1 = torch.full((1,), PAD_SCORE, dtype=I32, device=self.dev)
+            score_pad = torch.cat(
+                [torch.where(slot_ok, score, PAD_SCORE).to(I32), pad1])
+            smax = score_pad[slot_tab]                        # (U, CAP)
+            pos_tab = torch.cat([spots_s, torch.zeros(
+                1, dtype=spots_s.dtype, device=self.dev)])[slot_tab]
 
-        # per-slot DP-input hash for decide-level tie disambiguation
-        colm = self._ar(N, I32)[None, :] < blen_m[:, None]
-        hv = torch.where(colm, refs_x.to(I64) + 1, 0)
-        ha = (hv * self.pw[0][None, :]).sum(dim=1) & MASK32
-        hb = (hv * self.pw[1][None, :]).sum(dim=1) & MASK32
-        hs = _mix32(ha ^ mul32(blen_m.to(I64) & MASK32, 0x9E3779B9)
-                    ^ ((ors_s.to(I64) << 31) & MASK32))
-        hs = hs ^ _mix32((hb + 0x85EBCA6B) & MASK32)
-        htab = torch.cat([torch.where(slot_ok, hs, 0),
-                          torch.zeros(1, dtype=I64,
-                                      device=self.dev)])[slot_tab]
+            # per-slot DP-input hash for decide-level tie disambiguation
+            colm = self._ar(N, I32)[None, :] < blen_m[:, None]
+            hv = torch.where(colm, refs_x.to(I64) + 1, 0)
+            ha = (hv * self.pw[0][None, :]).sum(dim=1) & MASK32
+            hb = (hv * self.pw[1][None, :]).sum(dim=1) & MASK32
+            hs = _mix32(ha ^ mul32(blen_m.to(I64) & MASK32, 0x9E3779B9)
+                        ^ ((ors_s.to(I64) << 31) & MASK32))
+            hs = hs ^ _mix32((hb + 0x85EBCA6B) & MASK32)
+            htab = torch.cat([torch.where(slot_ok, hs, 0),
+                              torch.zeros(1, dtype=I64,
+                                          device=self.dev)])[slot_tab]
 
-        # windows touching exotic genome chars -> host fallback
-        exo_pad = torch.cat([exo & slot_ok, torch.zeros(
-            1, dtype=torch.bool, device=self.dev)])
-        fb = pairize(fb | (exo_pad[slot_tab] & validh).any(dim=1))
-        tot = torch.where(fb, 0, tot)
-        smax = torch.where(fb[:, None], PAD_SCORE, smax).to(I32)
-
-        # --- decide ------------------------------------------------------
-        valid_h = self._ar(CAP, I32)[None, :] < tot[:, None]
-        if comm is not None:
-            # a unit's candidates spread over the genome shards: globalize
-            # the fallback verdict, gather every shard's top list (global
-            # index coordinates, uint32 as the reference) shard-major, and
-            # decide identically on every shard
-            fb = (yield from comm.pmax(fb.to(I32))) > 0
+            # windows touching exotic genome chars -> host fallback
+            exo_pad = torch.cat([exo & slot_ok, torch.zeros(
+                1, dtype=torch.bool, device=self.dev)])
+            fb = pairize(fb | (exo_pad[slot_tab] & validh).any(dim=1))
             tot = torch.where(fb, 0, tot)
             smax = torch.where(fb[:, None], PAD_SCORE, smax).to(I32)
+
+        with stage("step.decide"):
+            # --- decide ---------------------------------------------------
             valid_h = self._ar(CAP, I32)[None, :] < tot[:, None]
-            pos_glob = torch.where(valid_h, (pos_tab + gctx[0]) & MASK32, 0)
-            smax_d = yield from comm.all_gather(
-                torch.where(valid_h, smax, PAD_SCORE), 1)
-            pos_d = yield from comm.all_gather(pos_glob, 1)
-            orient_d = yield from comm.all_gather(
-                torch.where(valid_h, orient, 0).to(torch.int8), 1)
-            valid_d = yield from comm.all_gather(valid_h, 1)
-            hash_d = yield from comm.all_gather(
-                torch.where(valid_h, htab, 0), 1)
-        else:
-            smax_d, pos_d, orient_d, valid_d, hash_d = (smax, pos_tab, orient,
-                                                        valid_h, htab)
-        if self.paired:
-            e1 = dict(smax=smax_d[:B], pos=pos_d[:B], valid=valid_d[:B],
-                      orient=orient_d[:B], hash=hash_d[:B])
-            e2 = dict(smax=smax_d[B:], pos=pos_d[B:], valid=valid_d[B:],
-                      orient=orient_d[B:], hash=hash_d[B:])
-            code_out, b1, b2, u1, u2, tie_p = self.decide_pair(
-                e1, e2, thr[:B], thr[B:])
-            best_u = torch.cat([b1, b2])
-            use_u = torch.cat([u1, u2])
-            tie_dec = torch.cat([tie_p, tie_p])
-        else:
-            code_out, best_u, use_u, tie_dec = self.decide_single(
-                smax_d, valid_d, thr, hash_d)
+            if comm is not None:
+                # a unit's candidates spread over the genome shards: globalize
+                # the fallback verdict, gather every shard's top list (global
+                # index coordinates, uint32 as the reference) shard-major, and
+                # decide identically on every shard
+                fb = (yield from comm.pmax(fb.to(I32))) > 0
+                tot = torch.where(fb, 0, tot)
+                smax = torch.where(fb[:, None], PAD_SCORE, smax).to(I32)
+                valid_h = self._ar(CAP, I32)[None, :] < tot[:, None]
+                pos_glob = torch.where(valid_h,
+                                       (pos_tab + gctx[0]) & MASK32, 0)
+                smax_d = yield from comm.all_gather(
+                    torch.where(valid_h, smax, PAD_SCORE), 1)
+                pos_d = yield from comm.all_gather(pos_glob, 1)
+                orient_d = yield from comm.all_gather(
+                    torch.where(valid_h, orient, 0).to(torch.int8), 1)
+                valid_d = yield from comm.all_gather(valid_h, 1)
+                hash_d = yield from comm.all_gather(
+                    torch.where(valid_h, htab, 0), 1)
+            else:
+                smax_d, pos_d, orient_d, valid_d, hash_d = (
+                    smax, pos_tab, orient, valid_h, htab)
+            if self.paired:
+                e1 = dict(smax=smax_d[:B], pos=pos_d[:B], valid=valid_d[:B],
+                          orient=orient_d[:B], hash=hash_d[:B])
+                e2 = dict(smax=smax_d[B:], pos=pos_d[B:], valid=valid_d[B:],
+                          orient=orient_d[B:], hash=hash_d[B:])
+                code_out, b1, b2, u1, u2, tie_p = self.decide_pair(
+                    e1, e2, thr[:B], thr[B:])
+                best_u = torch.cat([b1, b2])
+                use_u = torch.cat([u1, u2])
+                tie_dec = torch.cat([tie_p, tie_p])
+            else:
+                code_out, best_u, use_u, tie_dec = self.decide_single(
+                    smax_d, valid_d, thr, hash_d)
 
-        if comm is not None:
-            # only the winner's owner shard walks back and adds its pileup
-            own_u = torch.div(best_u, CAP, rounding_mode="floor") == comm.index
-            best_loc = torch.where(own_u, best_u % CAP, 0)
-            use_loc = torch.where(own_u, use_u, 0)
-        else:
-            best_loc, use_loc = best_u, use_u
-        slot_b = torch.gather(slot_tab, 1, best_loc.to(I64)[:, None])[:, 0]
-        slot_b = slot_b.clamp(0, H_CAP - 1)
-        # pre-walk tie routing: decide-level ambiguity, an exact argmax-
-        # cell tie of the winner, or a threshold-boundary candidate
-        tie_al_u = (use_loc == 1) & tie_a[slot_b]
-        thr_hit = ((valid_d & ((smax_d == thr[:, None]) |
-                               (smax_d == (thr - 1)[:, None]))).any(dim=1)
-                   & thr_amb)
-        tie_pre = pairize(tie_dec | tie_al_u | thr_hit)
-        if comm is not None:
-            tie_pre = (yield from comm.pmax(tie_pre.to(I32))) > 0
-        use_loc = torch.where(tie_pre, 0, use_loc)
-        m_u = torch.where(use_loc == 1, start_s[slot_b] + bi[slot_b] + 1, 0)
-        if comm is not None:
-            # .mfile positions are global seq coordinates (+15/contig)
-            m_u = yield from comm.psum(
-                torch.where(use_loc == 1, m_u + gctx[1], 0))
-        orb_u = torch.gather(orient_d, 1, best_u.to(I64)[:, None])[:, 0].to(
-            I32)
+            if comm is not None:
+                # only the winner's owner shard walks back and adds its pileup
+                own_u = (torch.div(best_u, CAP, rounding_mode="floor")
+                         == comm.index)
+                best_loc = torch.where(own_u, best_u % CAP, 0)
+                use_loc = torch.where(own_u, use_u, 0)
+            else:
+                best_loc, use_loc = best_u, use_u
+            slot_b = torch.gather(slot_tab, 1, best_loc.to(I64)[:, None])[:, 0]
+            slot_b = slot_b.clamp(0, H_CAP - 1)
+            # pre-walk tie routing: decide-level ambiguity, an exact argmax-
+            # cell tie of the winner, or a threshold-boundary candidate
+            tie_al_u = (use_loc == 1) & tie_a[slot_b]
+            thr_hit = ((valid_d & ((smax_d == thr[:, None]) |
+                                   (smax_d == (thr - 1)[:, None]))).any(dim=1)
+                       & thr_amb)
+            tie_pre = pairize(tie_dec | tie_al_u | thr_hit)
+            if comm is not None:
+                tie_pre = (yield from comm.pmax(tie_pre.to(I32))) > 0
+            use_loc = torch.where(tie_pre, 0, use_loc)
+            m_u = torch.where(use_loc == 1,
+                              start_s[slot_b] + bi[slot_b] + 1, 0)
+            if comm is not None:
+                # .mfile positions are global seq coordinates (+15/contig)
+                m_u = yield from comm.psum(
+                    torch.where(use_loc == 1, m_u + gctx[1], 0))
+            orb_u = torch.gather(orient_d, 1,
+                                 best_u.to(I64)[:, None])[:, 0].to(I32)
 
-        # --- winner compaction + traceback -------------------------------
-        wmask = use_loc == 1
-        wc = torch.cumsum(wmask.to(I64), 0)
-        n_win = wc[-1]
-        wsrc = vsearch_ge(wc, self._ar(U) + 1, steps_u).clamp(0, U - 1)
-        w_ok = self._ar(U) < n_win
-        uw = torch.where(w_ok, wsrc, 0)
-        slot_w = slot_b[uw]
-        start_w = start_s[slot_w]
-        blen_w = torch.where(w_ok, blen_s[slot_w], 0).to(I32)
-        k_w = torch.where(w_ok, bk[slot_w], 0).to(I32)
-        i_w = torch.where(w_ok, bi[slot_w], 0).to(I32)
-        orw = orb_u[uw]
-        rww = torch.where((orw == 1)[:, None], x4r_w[uw], x4f_w[uw])
-        reads_w = unpack4(rww, M)
-        rlens_w = torch.where(w_ok, lens[uw], 1).to(I32)
-        refs_w, _ = fetch_windows(gcode, gmask, start_w.to(I64), blen_w, N)
+        with stage("step.walk"):
+            # --- winner compaction + traceback ----------------------------
+            wmask = use_loc == 1
+            wc = torch.cumsum(wmask.to(I64), 0)
+            n_win = wc[-1]
+            wsrc = vsearch_ge(wc, self._ar(U) + 1, steps_u).clamp(0, U - 1)
+            w_ok = self._ar(U) < n_win
+            uw = torch.where(w_ok, wsrc, 0)
+            slot_w = slot_b[uw]
+            start_w = start_s[slot_w]
+            blen_w = torch.where(w_ok, blen_s[slot_w], 0).to(I32)
+            k_w = torch.where(w_ok, bk[slot_w], 0).to(I32)
+            i_w = torch.where(w_ok, bi[slot_w], 0).to(I32)
+            orw = orb_u[uw]
+            rww = torch.where((orw == 1)[:, None], x4r_w[uw], x4f_w[uw])
+            reads_w = unpack4(rww, M)
+            rlens_w = torch.where(w_ok, lens[uw], 1).to(I32)
+            refs_w, _ = fetch_windows(gcode, gmask, start_w.to(I64), blen_w, N)
 
-        ev_kind, ins_j, ins_len, tie_w = sw_traceback_rows(
-            refs_w, blen_w, reads_w, rlens_w, k_w, i_w,
-            bisulfite=self.bisulfite, n_rows=R_ROWS)
+            ev_kind, ins_j, ins_len, tie_w = sw_traceback_rows(
+                refs_w, blen_w, reads_w, rlens_w, k_w, i_w,
+                bisulfite=self.bisulfite, n_rows=R_ROWS)
 
-        # walk-tie routing: tied lanes get their pileup/insertion events
-        # suppressed and a record for the host f64 re-walk; records past
-        # tie_cap demote their unit to the full host remap
-        tied = w_ok & tie_w
-        trank = torch.cumsum(tied.to(I64), 0)
-        if comm is not None:
-            # ranks over the shards' merged record block, so that its
-            # overflow demotes units to the host remap (the reference
-            # raises there instead, pecaller_tpu/mapper/gshard.py:208-210)
-            n_tied = yield from comm.all_gather(trank[-1:], 0)
-            trank = trank + n_tied[:comm.index].sum()
-        t_over = tied & (trank > tie_cap)
-        fb_over = torch.zeros(U + 1, dtype=torch.bool, device=self.dev)
-        fb_over.index_fill_(0, torch.where(t_over, uw, U), True)  # U: dump
-        fb_over = pairize(fb_over[:U])
-        if comm is not None:
-            fb_over = (yield from comm.pmax(fb_over.to(I32))) > 0
-        lane_keep = ~tied & ~fb_over[uw]
+            # walk-tie routing: tied lanes get their pileup/insertion events
+            # suppressed and a record for the host f64 re-walk; records past
+            # tie_cap demote their unit to the full host remap
+            tied = w_ok & tie_w
+            trank = torch.cumsum(tied.to(I64), 0)
+            if comm is not None:
+                # ranks over the shards' merged record block, so that its
+                # overflow demotes units to the host remap (the reference
+                # raises there instead, pecaller_tpu/mapper/gshard.py:208-210)
+                n_tied = yield from comm.all_gather(trank[-1:], 0)
+                trank = trank + n_tied[:comm.index].sum()
+            t_over = tied & (trank > tie_cap)
+            fb_over = torch.zeros(U + 1, dtype=torch.bool, device=self.dev)
+            fb_over.index_fill_(0, torch.where(t_over, uw, U), True)  # U: dump
+            fb_over = pairize(fb_over[:U])
+            if comm is not None:
+                fb_over = (yield from comm.pmax(fb_over.to(I32))) > 0
+            lane_keep = ~tied & ~fb_over[uw]
 
-        # --- pileup add (flat counters, in place) -------------------------
-        n_cnt = dev_counts.shape[0]
-        rowv = self._ar(R_ROWS)[None, :]
-        pos_abs = start_w.to(I64)[:, None] + rowv
-        okev = ((ev_kind != sw2.EV_NONE) & w_ok[:, None]
-                & lane_keep[:, None])
-        flat_idx = torch.where(okev, pos_abs * 6 + ev_kind.to(I64),
-                               0).reshape(-1)
-        inb = (flat_idx >= 0) & (flat_idx < n_cnt)
-        dev_counts.index_add_(
-            0, torch.where(inb, flat_idx, 0),
-            (okev.reshape(-1) & inb).to(I32))
-        insm = (ins_j >= 0) & w_ok[:, None] & lane_keep[:, None]
-        ci = torch.cumsum(insm.reshape(-1).to(I64), 0)
-        n_ins = ci[-1]
-        isrc = vsearch_ge(ci, self._ar(ins_cap) + 1,
-                          _ceil_log2(U * R_ROWS + 1)).clamp(
-                              0, U * R_ROWS - 1)
-        i_ok = self._ar(ins_cap) < n_ins
-        iu = torch.div(isrc, R_ROWS, rounding_mode="floor")
-        ir = isrc % R_ROWS
-        ipos = start_w[iu].to(I64) + ir
-        # records carry global seq coordinates; the pileup stays local
-        ipos_rec = ipos + gctx[1] if comm is not None else ipos
-        iidx = torch.where(i_ok, ipos * 6 + 5, 0)
-        inb = (iidx >= 0) & (iidx < n_cnt)
-        dev_counts.index_add_(0, torch.where(inb, iidx, 0),
-                              (i_ok & inb).to(I32))
+        with stage("step.pileup"):
+            # --- pileup add (flat counters, in place) ---------------------
+            n_cnt = dev_counts.shape[0]
+            rowv = self._ar(R_ROWS)[None, :]
+            pos_abs = start_w.to(I64)[:, None] + rowv
+            okev = ((ev_kind != sw2.EV_NONE) & w_ok[:, None]
+                    & lane_keep[:, None])
+            flat_idx = torch.where(okev, pos_abs * 6 + ev_kind.to(I64),
+                                   0).reshape(-1)
+            inb = (flat_idx >= 0) & (flat_idx < n_cnt)
+            dev_counts.index_add_(
+                0, torch.where(inb, flat_idx, 0),
+                (okev.reshape(-1) & inb).to(I32))
+            insm = (ins_j >= 0) & w_ok[:, None] & lane_keep[:, None]
+            ci = torch.cumsum(insm.reshape(-1).to(I64), 0)
+            n_ins = ci[-1]
+            isrc = vsearch_ge(ci, self._ar(ins_cap) + 1,
+                              _ceil_log2(U * R_ROWS + 1)).clamp(
+                                  0, U * R_ROWS - 1)
+            i_ok = self._ar(ins_cap) < n_ins
+            iu = torch.div(isrc, R_ROWS, rounding_mode="floor")
+            ir = isrc % R_ROWS
+            ipos = start_w[iu].to(I64) + ir
+            # records carry global seq coordinates; the pileup stays local
+            ipos_rec = ipos + gctx[1] if comm is not None else ipos
+            iidx = torch.where(i_ok, ipos * 6 + 5, 0)
+            inb = (iidx >= 0) & (iidx < n_cnt)
+            dev_counts.index_add_(0, torch.where(inb, iidx, 0),
+                                  (i_ok & inb).to(I32))
 
-        zero1 = torch.zeros(1, dtype=I32, device=self.dev)
+            zero1 = torch.zeros(1, dtype=I32, device=self.dev)
 
-        def col(ok, x, fill):
-            """Record column: x where ok else fill, plus the tail row."""
-            return torch.cat([torch.where(ok, x, fill).to(I32), zero1])
+            def col(ok, x, fill):
+                """Record column: x where ok else fill, plus the tail row."""
+                return torch.cat([torch.where(ok, x, fill).to(I32), zero1])
 
-        zc = torch.zeros(ins_cap + 1, dtype=I32, device=self.dev)
-        rec = torch.stack([
-            col(i_ok, uw[iu], -1),
-            col(i_ok, ipos_rec, -1),
-            col(i_ok, ins_j.reshape(-1)[isrc], -1),
-            col(i_ok, ins_len.reshape(-1)[isrc], 0),
-            zc, zc], dim=1)
-        rec[ins_cap, 0] = n_ins.to(I32)
+            zc = torch.zeros(ins_cap + 1, dtype=I32, device=self.dev)
+            rec = torch.stack([
+                col(i_ok, uw[iu], -1),
+                col(i_ok, ipos_rec, -1),
+                col(i_ok, ins_j.reshape(-1)[isrc], -1),
+                col(i_ok, ins_len.reshape(-1)[isrc], 0),
+                zc, zc], dim=1)
+            rec[ins_cap, 0] = n_ins.to(I32)
 
-        # walk-tie record block (overflow-demoted units excluded)
-        rsel = tied & ~fb_over[uw]
-        crt = torch.cumsum(rsel.to(I64), 0)
-        n_trec = crt[-1]
-        tsrc = vsearch_ge(crt, self._ar(tie_cap) + 1, steps_u).clamp(
-            0, U - 1)
-        t_ok = self._ar(tie_cap) < n_trec
-        tstart = start_w[tsrc] + gctx[1] if comm is not None else start_w[tsrc]
-        trec = torch.stack([
-            col(t_ok, uw[tsrc], -1),
-            col(t_ok, tstart, 0),
-            col(t_ok, blen_w[tsrc], 0),
-            col(t_ok, orw[tsrc], 0),
-            col(t_ok, k_w[tsrc], 0),
-            col(t_ok, i_w[tsrc], 0)], dim=1)
-        trec[tie_cap, 0] = n_trec.to(I32)
+            # walk-tie record block (overflow-demoted units excluded)
+            rsel = tied & ~fb_over[uw]
+            crt = torch.cumsum(rsel.to(I64), 0)
+            n_trec = crt[-1]
+            tsrc = vsearch_ge(crt, self._ar(tie_cap) + 1, steps_u).clamp(
+                0, U - 1)
+            t_ok = self._ar(tie_cap) < n_trec
+            tstart = (start_w[tsrc] + gctx[1] if comm is not None
+                      else start_w[tsrc])
+            trec = torch.stack([
+                col(t_ok, uw[tsrc], -1),
+                col(t_ok, tstart, 0),
+                col(t_ok, blen_w[tsrc], 0),
+                col(t_ok, orw[tsrc], 0),
+                col(t_ok, k_w[tsrc], 0),
+                col(t_ok, i_w[tsrc], 0)], dim=1)
+            trec[tie_cap, 0] = n_trec.to(I32)
 
-        fb_all = fb | tie_pre | fb_over
-        zB = torch.zeros(B, dtype=I32, device=self.dev)
-        m_u = m_u.to(I32)
-        if self.paired:
-            packed = torch.stack(
-                [m_u[:B], m_u[B:], code_out, orb_u[:B], orb_u[B:],
-                 (fb_all[:B] | fb_all[B:]).to(I32)], dim=1)
-        else:
-            packed = torch.stack([m_u, zB, code_out, orb_u, zB,
-                                  fb_all.to(I32)], dim=1)
-        return torch.cat([packed, rec, trec], dim=0)
+            fb_all = fb | tie_pre | fb_over
+            zB = torch.zeros(B, dtype=I32, device=self.dev)
+            m_u = m_u.to(I32)
+            if self.paired:
+                packed = torch.stack(
+                    [m_u[:B], m_u[B:], code_out, orb_u[:B], orb_u[B:],
+                     (fb_all[:B] | fb_all[B:]).to(I32)], dim=1)
+            else:
+                packed = torch.stack([m_u, zB, code_out, orb_u, zB,
+                                      fb_all.to(I32)], dim=1)
+            return torch.cat([packed, rec, trec], dim=0)
 
 
 # --------------------------------------------------------------------------
@@ -1335,9 +1347,15 @@ class FusedMapperEngine2(MapperEngine):
     into one part a shard (``shard_units``), each shard runs the step on
     its part and adds into its own pileup partial (``states[s]``); the
     partials are summed at ``final_pileup``.  Shards on one device share
-    that device's index tensors.  ``mesh_timing`` sums the host seconds
-    of staging and enqueuing the shards (dispatch) and of waiting for
-    their results (fetch) over the batches.
+    that device's index tensors.
+
+    The host's work is timed in ``utils.log`` spans: ``engine.enqueue``
+    (its parts ``.prep``, ``.fill`` and ``.launch``, on a mesh
+    ``.dispatch``: staging and enqueuing the shards), ``engine.resolve``
+    (``.wait`` for the device's output, ``.ins`` the insertion strings,
+    ``.tiefix`` the f64 re-walk of tied windows, ``.stats``, ``.remap``
+    the host engine on fallback pairs) and ``engine.upload`` (packing
+    the genome and moving the index to the device).
 
     Each shape key's step runs as a ``StepProgram`` (a shard's step as
     one a shard): on a card a CUDA graph captured at the key's second
@@ -1366,7 +1384,6 @@ class FusedMapperEngine2(MapperEngine):
         self._n_sh = mesh.size if self._mesh is not None else 1
         self.device = (mesh.flat[0] if self._mesh is not None
                        else resolve_device(device))
-        self.mesh_timing = {"dispatch_s": 0.0, "fetch_s": 0.0, "batches": 0}
         gs = self.sdx.genome_size
         if gs >= 2 ** 30:
             raise ValueError("fused device engine requires genome < 2^30 "
@@ -1381,24 +1398,25 @@ class FusedMapperEngine2(MapperEngine):
                     nbr = build_nbr_index(self.index)
                 except ValueError:
                     quarter = build_quarter_index(self.index)
-        if quarter is None and nbr.hash_tag is None:
-            nbr.with_cuckoo()
-        self.ins_cap, self.tie_cap = ins_cap, tie_cap
-        cw, mw = pack_genome(self.genome)
-        qkw = dict(t1=t1, rcap=rcap, hv=hv) if quarter is not None else {}
-        n_counts = (gs + SCATTER_PAD) * 6
-        if self._mesh is None:
-            self.states = [carry_state(
-                nbr if quarter is None else quarter, cw, mw, self._istarts,
-                self.sdx.n_contigs, np.zeros(n_counts, np.uint32),
-                self.device, **qkw)]
-        else:
-            from ..parallel.mesh import shard_states
-            base = {d: carry_state(
-                nbr if quarter is None else quarter, cw, mw, self._istarts,
-                self.sdx.n_contigs, np.zeros(0, np.uint32), d, **qkw)
-                for d in dict.fromkeys(self._mesh.flat)}
-            self.states = shard_states(self._mesh, base, n_counts)
+        with span("engine.upload"):
+            if quarter is None and nbr.hash_tag is None:
+                nbr.with_cuckoo()
+            self.ins_cap, self.tie_cap = ins_cap, tie_cap
+            cw, mw = pack_genome(self.genome)
+            qkw = dict(t1=t1, rcap=rcap, hv=hv) if quarter is not None else {}
+            n_counts = (gs + SCATTER_PAD) * 6
+            if self._mesh is None:
+                self.states = [carry_state(
+                    nbr if quarter is None else quarter, cw, mw, self._istarts,
+                    self.sdx.n_contigs, np.zeros(n_counts, np.uint32),
+                    self.device, **qkw)]
+            else:
+                from ..parallel.mesh import shard_states
+                base = {d: carry_state(
+                    nbr if quarter is None else quarter, cw, mw, self._istarts,
+                    self.sdx.n_contigs, np.zeros(0, np.uint32), d, **qkw)
+                    for d in dict.fromkeys(self._mesh.flat)}
+                self.states = shard_states(self._mesh, base, n_counts)
         self.state = self.states[0]
         self._steps = {}
         self.n_fallback = 0
@@ -1475,6 +1493,7 @@ class FusedMapperEngine2(MapperEngine):
                 return b
         return 20
 
+    @span("engine.enqueue")
     def map_batch_async(self, seqs1, lens1, seqs2=None, lens2=None,
                         read_nos=None):
         lens1 = np.asarray(lens1, np.int64)
@@ -1488,10 +1507,12 @@ class FusedMapperEngine2(MapperEngine):
         mr = _pad_to(max(maxlen, 32), 8)
         s_max = self._seg_bucket(segments_of(maxlen))
         key = (B, M, N, s_max, mr)
-        ins = self._prep_end2(seqs1, lens1, B, M, s_max)
-        if self.paired:
-            a2 = self._prep_end2(seqs2, lens2, B, M, s_max)
-            ins = [np.concatenate([x, y], axis=0) for x, y in zip(ins, a2)]
+        with span("engine.enqueue.prep"):
+            ins = self._prep_end2(seqs1, lens1, B, M, s_max)
+            if self.paired:
+                a2 = self._prep_end2(seqs2, lens2, B, M, s_max)
+                ins = [np.concatenate([x, y], axis=0)
+                       for x, y in zip(ins, a2)]
         h = dict(seqs1=seqs1, lens1=lens1, seqs2=seqs2, lens2=lens2,
                  read_nos=read_nos, n=seqs1.shape[0], B=B, key=key)
         if self._mesh is None:
@@ -1499,10 +1520,8 @@ class FusedMapperEngine2(MapperEngine):
             self._stage(h)
         else:
             self._step_for(*key)
-            t0 = time.perf_counter()
-            outs = self._mesh_outputs(h, ins)
-            self.mesh_timing["dispatch_s"] += time.perf_counter() - t0
-            self.mesh_timing["batches"] += 1
+            with span("engine.enqueue.dispatch"):
+                outs = self._mesh_outputs(h, ins)
             h["shards"] = [fetch_async(o, o.device) for o in outs]
         return h
 
@@ -1536,7 +1555,10 @@ class FusedMapperEngine2(MapperEngine):
         """Run the batches ``hs`` as one program and start the one copy
         of their outputs to the host."""
         prog = self._program_for(len(hs), hs[0]["key"])
-        g = fetch_async(prog([h.pop("ins") for h in hs]), self.device)
+        with span("engine.enqueue.fill"):
+            prog.load([h.pop("ins") for h in hs])
+        with span("engine.enqueue.launch"):
+            g = fetch_async(prog.launch(), self.device)
         for i, h in enumerate(hs):
             h["group"], h["gi"] = g, i
 
@@ -1546,10 +1568,8 @@ class FusedMapperEngine2(MapperEngine):
 
     def _fetch_shards(self, h) -> list:
         """The shards' output blocks of a mesh batch, on the host."""
-        t0 = time.perf_counter()
-        outs = [fetched(f) for f in h.pop("shards")]
-        self.mesh_timing["fetch_s"] += time.perf_counter() - t0
-        return outs
+        with span("engine.resolve.wait"):
+            return [fetched(f) for f in h.pop("shards")]
 
     def _records(self, out, n_unit):
         """The insertion and walk-tie record rows of one output block of
@@ -1573,7 +1593,8 @@ class FusedMapperEngine2(MapperEngine):
                 self._flush_staged()            # h is still staged
             g = h.pop("group")
             if "out" not in g:
-                g["out"] = fetched(g)           # one fetch a group
+                with span("engine.resolve.wait"):
+                    g["out"] = fetched(g)       # one fetch a group
             out = g["out"][h["gi"]]
             return (out[:B], *self._records(out, B))
         outs = self._fetch_shards(h)
@@ -1594,6 +1615,7 @@ class FusedMapperEngine2(MapperEngine):
         return (np.concatenate(packed), np.concatenate(recs),
                 np.concatenate(trecs))
 
+    @span("engine.resolve")
     def resolve(self, h):
         n = h["n"]
         B = h["B"]
@@ -1608,69 +1630,75 @@ class FusedMapperEngine2(MapperEngine):
         seqs1, lens1 = h["seqs1"], h["lens1"]
         seqs2, lens2 = h["seqs2"], h["lens2"]
 
-        # reverse-complement only the rows carrying reverse-strand
-        # insertion records
-        rev_rows = {0: {}, 1: {}}
-        if len(rr):
-            # per-unit descending gpos: the reference walk attaches
-            # insertion strings high-to-low (pemapper.c:1875-1905)
-            g_u = rr[:, 1].astype(np.int64) & 0xFFFFFFFF
-            rr = rr[np.lexsort((-g_u, rr[:, 0].astype(np.int64)))]
-            unit_a = rr[:, 0].astype(np.int64)
-            end_a = ((unit_a >= B) & self.paired).astype(np.int8)
-            rid_a = unit_a - np.where(end_a == 1, B, 0)
-            ok_a = (rid_a >= 0) & (rid_a < n)
-            for end in (0, 1):
-                seqs, lens, orb = (seqs1, lens1, orb1) if end == 0 \
-                    else (seqs2, lens2, orb2)
-                if seqs is None:
+        with span("engine.resolve.ins"):
+            # reverse-complement only the rows carrying reverse-strand
+            # insertion records
+            rev_rows = {0: {}, 1: {}}
+            if len(rr):
+                # per-unit descending gpos: the reference walk attaches
+                # insertion strings high-to-low (pemapper.c:1875-1905)
+                g_u = rr[:, 1].astype(np.int64) & 0xFFFFFFFF
+                rr = rr[np.lexsort((-g_u, rr[:, 0].astype(np.int64)))]
+                unit_a = rr[:, 0].astype(np.int64)
+                end_a = ((unit_a >= B) & self.paired).astype(np.int8)
+                rid_a = unit_a - np.where(end_a == 1, B, 0)
+                ok_a = (rid_a >= 0) & (rid_a < n)
+                for end in (0, 1):
+                    seqs, lens, orb = (seqs1, lens1, orb1) if end == 0 \
+                        else (seqs2, lens2, orb2)
+                    if seqs is None:
+                        continue
+                    sel = ok_a & (end_a == end)
+                    rids = rid_a[sel]
+                    rids = rids[~fb[rids] & (orb[rids] == 1)]
+                    uniq = np.unique(rids)
+                    if len(uniq):
+                        sub = revcomp_batch(
+                            np.ascontiguousarray(seqs[uniq]), lens[uniq])
+                        rev_rows[end] = {int(r): sub[k]
+                                         for k, r in enumerate(uniq)}
+            for unit, gpos, js, ln in rr:
+                end = 1 if (self.paired and unit >= B) else 0
+                rid = int(unit) - (B if end else 0)
+                if rid < 0 or rid >= n or fb[rid]:
                     continue
-                sel = ok_a & (end_a == end)
-                rids = rid_a[sel]
-                rids = rids[~fb[rids] & (orb[rids] == 1)]
-                uniq = np.unique(rids)
-                if len(uniq):
-                    sub = revcomp_batch(
-                        np.ascontiguousarray(seqs[uniq]), lens[uniq])
-                    rev_rows[end] = {int(r): sub[k]
-                                     for k, r in enumerate(uniq)}
-        for unit, gpos, js, ln in rr:
-            end = 1 if (self.paired and unit >= B) else 0
-            rid = int(unit) - (B if end else 0)
-            if rid < 0 or rid >= n or fb[rid]:
-                continue
-            seqs, orb = (seqs1, orb1) if end == 0 else (seqs2, orb2)
-            src = rev_rows[end][rid] if orb[rid] == 1 else seqs[rid]
-            sstr = src[js:js + ln].tobytes().decode()
-            rn = int(read_nos[rid]) if read_nos is not None else int(rid)
-            # positions as uint32 (a genome shard's global records pass
-            # 2^31 on hg38)
-            self.ins_records.append(
-                ((self._order_counter + rn, end), int(gpos) & MASK32, sstr))
+                seqs, orb = (seqs1, orb1) if end == 0 else (seqs2, orb2)
+                src = rev_rows[end][rid] if orb[rid] == 1 else seqs[rid]
+                sstr = src[js:js + ln].tobytes().decode()
+                rn = int(read_nos[rid]) if read_nos is not None else int(rid)
+                # positions as uint32 (a genome shard's global records pass
+                # 2^31 on hg38)
+                self.ins_records.append(
+                    ((self._order_counter + rn, end), int(gpos) & MASK32,
+                     sstr))
 
         if len(trec):
             self._rewalk_tied(trec, B, n, read_nos, seqs1, lens1, seqs2,
                               lens2)
 
-        keep = ~fb
-        self._accumulate_stats(
-            code[keep], m1[keep], m2[keep], lens1[keep],
-            lens2[keep] if self.paired else None)
+        with span("engine.resolve.stats"):
+            keep = ~fb
+            self._accumulate_stats(
+                code[keep], m1[keep], m2[keep], lens1[keep],
+                lens2[keep] if self.paired else None)
 
         if fb.any():
-            idx = np.nonzero(fb)[0]
-            self.n_fallback += len(idx)
-            nos = (read_nos[idx] if read_nos is not None
-                   else idx.astype(np.int64))
-            fm1, fm2, fcode = MapperEngine.map_batch(
-                self, np.ascontiguousarray(seqs1[idx]), lens1[idx],
-                np.ascontiguousarray(seqs2[idx]) if self.paired else None,
-                lens2[idx] if self.paired else None, read_nos=nos)
-            m1[idx] = fm1
-            m2[idx] = fm2
-            code[idx] = fcode
+            with span("engine.resolve.remap"):
+                idx = np.nonzero(fb)[0]
+                self.n_fallback += len(idx)
+                nos = (read_nos[idx] if read_nos is not None
+                       else idx.astype(np.int64))
+                fm1, fm2, fcode = MapperEngine.map_batch(
+                    self, np.ascontiguousarray(seqs1[idx]), lens1[idx],
+                    np.ascontiguousarray(seqs2[idx]) if self.paired
+                    else None,
+                    lens2[idx] if self.paired else None, read_nos=nos)
+                m1[idx] = fm1
+                m2[idx] = fm2
+                code[idx] = fcode
         return m1, m2, code
 
+    @span("engine.resolve.tiefix")
     def _rewalk_tied(self, tr, B, n, read_nos, seqs1, lens1, seqs2, lens2):
         """Walk-tie records: the device suppressed these lanes' pileup
         and insertion events; redo just those windows' f64 DP and walk

@@ -24,7 +24,6 @@ nothing after convergence.
 
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -34,6 +33,7 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..ops import sw
 from ..ops.sw_cuda import sw_align
+from ..utils.log import stage
 from .device_map2 import DecideLayer, fetch_async, fetched, windows
 from .device_seeds import (HIT_CAP, DeviceSeedIndex, host_bits_rev,
                            seed_chain_core)
@@ -47,18 +47,6 @@ PAD_SCORE = -36          # -1.0 x36: the reference's dvector padding
 INS_CAP = 2048
 I32 = torch.int32
 I64 = torch.int64
-
-
-def _ranged(fn):
-    """A profiler range "v1.<method>" around a step stage (free when no
-    profiler runs: chip_smoke.py --profile reads them)."""
-    name = f"v1.{fn.__name__}"
-
-    @functools.wraps(fn)
-    def wrap(*args, **kwargs):
-        with torch.profiler.record_function(name):
-            return fn(*args, **kwargs)
-    return wrap
 
 
 @dataclass
@@ -121,13 +109,13 @@ class FusedStep(DecideLayer):
         self.chrom_steps = max(3, int(np.ceil(np.log2(
             max(n_contigs, 2)))) + 3)
 
-    @_ranged
     def seed_end(self, bits_f, bits_r, offs, nsegs, mm0, skip):
-        d = self.dindex
-        return seed_chain_core(
-            d.ptab, d.keys, d.starts, d.hi_table, d.positions, bits_f,
-            bits_r, offs, nsegs, mm0, skip, s_max=self.s_max,
-            n_steps=self.n_steps, n_keys=d.n_keys, k_cap=self.k_cap)
+        with stage("v1.seed_end"):
+            d = self.dindex
+            return seed_chain_core(
+                d.ptab, d.keys, d.starts, d.hi_table, d.positions, bits_f,
+                bits_r, offs, nsegs, mm0, skip, s_max=self.s_max,
+                n_steps=self.n_steps, n_keys=d.n_keys, k_cap=self.k_cap)
 
     def hit_overflow(self, tot):
         """Reads whose hits spill past H_CAP in rid-major compaction."""
@@ -140,118 +128,119 @@ class FusedStep(DecideLayer):
         return torch.where(col < blen[:, None], genome[gidx], 0).to(
             torch.uint8)
 
-    @_ranged
     def compact_and_score(self, state, seqs, rev, lens, hits, hits_off,
                           orient, tot):
         """Compact valid hits across the batch and SW-score them (K3).
         Returns per-slot arrays and the (B, CAP) score matrix padded with
         PAD_SCORE (the reference pads its dvectors with -1.0)."""
-        B, M, H_CAP, CAP = self.B, self.M, self.H_CAP, HIT_CAP
-        idx = self._ar(CAP)[None, :]
-        flat_valid = (idx < tot[:, None]).reshape(-1)
-        slot = torch.cumsum(flat_valid.to(I64), 0) - 1
-        tgt = torch.where(flat_valid, slot.clamp(max=H_CAP - 1), H_CAP)
-        flat = self._ar(B * CAP)
-        # the step drops reads past H_CAP first: the valid slots are
-        # distinct, row H_CAP is the dump
-        rid_s = torch.zeros(H_CAP + 1, dtype=I64, device=self.dev)
-        rid_s[tgt] = torch.div(flat, CAP, rounding_mode="floor")
-        hid_s = torch.zeros(H_CAP + 1, dtype=I64, device=self.dev)
-        hid_s[tgt] = flat % CAP
-        rid_s, hid_s = rid_s[:H_CAP], hid_s[:H_CAP]
-        n_slots = flat_valid.sum().clamp(max=H_CAP)
-        slot_ok = self._ar(H_CAP) < n_slots
+        with stage("v1.compact_and_score"):
+            B, M, H_CAP, CAP = self.B, self.M, self.H_CAP, HIT_CAP
+            idx = self._ar(CAP)[None, :]
+            flat_valid = (idx < tot[:, None]).reshape(-1)
+            slot = torch.cumsum(flat_valid.to(I64), 0) - 1
+            tgt = torch.where(flat_valid, slot.clamp(max=H_CAP - 1), H_CAP)
+            flat = self._ar(B * CAP)
+            # the step drops reads past H_CAP first: the valid slots are
+            # distinct, row H_CAP is the dump
+            rid_s = torch.zeros(H_CAP + 1, dtype=I64, device=self.dev)
+            rid_s[tgt] = torch.div(flat, CAP, rounding_mode="floor")
+            hid_s = torch.zeros(H_CAP + 1, dtype=I64, device=self.dev)
+            hid_s[tgt] = flat % CAP
+            rid_s, hid_s = rid_s[:H_CAP], hid_s[:H_CAP]
+            n_slots = flat_valid.sum().clamp(max=H_CAP)
+            slot_ok = self._ar(H_CAP) < n_slots
 
-        spots_s = torch.clamp(hits[rid_s, hid_s] - hits_off[rid_s, hid_s],
-                              min=0).to(I64)
-        lens_s = lens[rid_s].to(I64)
-        start_s, blen_s = windows(state.st_pad, state.ist, spots_s, lens_s,
-                                  self.n_contigs, self.chrom_steps)
-        blen_m = torch.where(slot_ok, blen_s, 0).to(I32)
-        refs = self.fetch_refs(state.genome, start_s, blen_m)
-        ors_s = orient[rid_s, hid_s]
-        reads_s = torch.where((ors_s == 1)[:, None], rev[rid_s],
-                              seqs[rid_s])[:, :M].contiguous()
-        rlens_m = torch.where(slot_ok, lens_s, 1).to(I32)
+            spots_s = torch.clamp(hits[rid_s, hid_s] - hits_off[rid_s, hid_s],
+                                  min=0).to(I64)
+            lens_s = lens[rid_s].to(I64)
+            start_s, blen_s = windows(state.st_pad, state.ist, spots_s, lens_s,
+                                      self.n_contigs, self.chrom_steps)
+            blen_m = torch.where(slot_ok, blen_s, 0).to(I32)
+            refs = self.fetch_refs(state.genome, start_s, blen_m)
+            ors_s = orient[rid_s, hid_s]
+            reads_s = torch.where((ors_s == 1)[:, None], rev[rid_s],
+                                  seqs[rid_s])[:, :M].contiguous()
+            rlens_m = torch.where(slot_ok, lens_s, 1).to(I32)
 
-        score, bk, bi = sw_align(refs, blen_m, reads_s, rlens_m,
-                                 bisulfite=self.bisulfite, n_rows=self.N)
+            score, bk, bi = sw_align(refs, blen_m, reads_s, rlens_m,
+                                     bisulfite=self.bisulfite, n_rows=self.N)
 
-        # (B, CAP) table: hit -> slot; sentinel H_CAP for absent
-        rid_store = torch.where(slot_ok, rid_s, B)
-        slot_tab = torch.full((B + 1, CAP), H_CAP, dtype=I64,
-                              device=self.dev)
-        slot_tab[rid_store, hid_s] = self._ar(H_CAP)      # row B: dump
-        slot_tab = slot_tab[:B]
-        pad = torch.full((1,), PAD_SCORE, dtype=I32, device=self.dev)
-        smax = torch.cat([score, pad])[slot_tab]
-        zero = torch.zeros(1, dtype=I64, device=self.dev)
-        pos_tab = torch.cat([spots_s, zero])[slot_tab]
-        return dict(slot_tab=slot_tab, smax=smax, pos=pos_tab,
-                    start_s=start_s, blen_s=blen_m, bk=bk, bi=bi)
+            # (B, CAP) table: hit -> slot; sentinel H_CAP for absent
+            rid_store = torch.where(slot_ok, rid_s, B)
+            slot_tab = torch.full((B + 1, CAP), H_CAP, dtype=I64,
+                                  device=self.dev)
+            slot_tab[rid_store, hid_s] = self._ar(H_CAP)      # row B: dump
+            slot_tab = slot_tab[:B]
+            pad = torch.full((1,), PAD_SCORE, dtype=I32, device=self.dev)
+            smax = torch.cat([score, pad])[slot_tab]
+            zero = torch.zeros(1, dtype=I64, device=self.dev)
+            pos_tab = torch.cat([spots_s, zero])[slot_tab]
+            return dict(slot_tab=slot_tab, smax=smax, pos=pos_tab,
+                        start_s=start_s, blen_s=blen_m, bk=bk, bi=bi)
 
-    @_ranged
     def backtrack(self, state, seqs, rev, lens, info, orient, best, use):
         """Winner traceback, pileup add and insertion compaction.
         Returns (m (B,), rec (ins_cap + 1, 4))."""
-        B, M, N, H_CAP = self.B, self.M, self.N, self.H_CAP
-        wmask = use == 1
-        wslot = torch.cumsum(wmask.to(I64), 0) - 1
-        n_win = wmask.sum()
-        rid_w = torch.zeros(B + 1, dtype=I64, device=self.dev)
-        rid_w[torch.where(wmask, wslot, B)] = self._ar(B)  # row B: dump
-        valid_w = self._ar(B) < n_win
-        ridc = torch.where(valid_w, rid_w[:B], 0)
-        best_c = best.to(I64)[ridc]
-        hsel = info["slot_tab"][ridc, best_c].clamp(0, H_CAP - 1)
-        start_w = info["start_s"][hsel]
-        blen_w = torch.where(valid_w, info["blen_s"][hsel], 0).to(I32)
-        # invalid slots must not walk: bt_i = 0 kills the traceback loop
-        k_w = torch.where(valid_w, info["bk"][hsel], 0).to(I32)
-        i_w = torch.where(valid_w, info["bi"][hsel], 0).to(I32)
-        ors_w = orient[ridc, best_c]
-        reads_w = torch.where((ors_w == 1)[:, None], rev[ridc],
-                              seqs[ridc])[:, :M].contiguous()
-        rlens_w = torch.where(valid_w, lens[ridc].to(I32), 1).to(I32)
-        refs_w = self.fetch_refs(state.genome, start_w, blen_w)
-        with torch.profiler.record_function("v1.traceback"):
-            ev_pos, ev_kind, ins_j, ins_len = sw.sw_traceback_device(
-                refs_w, blen_w, reads_w, rlens_w, k_w, i_w,
-                bisulfite=self.bisulfite, n_rows=N)
-        ev_abs = torch.where(ev_pos >= 0,
-                             ev_pos.to(I64) + start_w.to(I64)[:, None], -1)
+        with stage("v1.backtrack"):
+            B, M, N, H_CAP = self.B, self.M, self.N, self.H_CAP
+            wmask = use == 1
+            wslot = torch.cumsum(wmask.to(I64), 0) - 1
+            n_win = wmask.sum()
+            rid_w = torch.zeros(B + 1, dtype=I64, device=self.dev)
+            rid_w[torch.where(wmask, wslot, B)] = self._ar(B)  # row B: dump
+            valid_w = self._ar(B) < n_win
+            ridc = torch.where(valid_w, rid_w[:B], 0)
+            best_c = best.to(I64)[ridc]
+            hsel = info["slot_tab"][ridc, best_c].clamp(0, H_CAP - 1)
+            start_w = info["start_s"][hsel]
+            blen_w = torch.where(valid_w, info["blen_s"][hsel], 0).to(I32)
+            # invalid slots must not walk: bt_i = 0 kills the traceback loop
+            k_w = torch.where(valid_w, info["bk"][hsel], 0).to(I32)
+            i_w = torch.where(valid_w, info["bi"][hsel], 0).to(I32)
+            ors_w = orient[ridc, best_c]
+            reads_w = torch.where((ors_w == 1)[:, None], rev[ridc],
+                                  seqs[ridc])[:, :M].contiguous()
+            rlens_w = torch.where(valid_w, lens[ridc].to(I32), 1).to(I32)
+            refs_w = self.fetch_refs(state.genome, start_w, blen_w)
+            with stage("v1.traceback"):
+                ev_pos, ev_kind, ins_j, ins_len = sw.sw_traceback_device(
+                    refs_w, blen_w, reads_w, rlens_w, k_w, i_w,
+                    bisulfite=self.bisulfite, n_rows=N)
+            ev_abs = torch.where(ev_pos >= 0,
+                                 ev_pos.to(I64) + start_w.to(I64)[:, None], -1)
 
-        # pileup add; rows past the genome are dropped
-        gs = self.genome_size
-        flat_pos = ev_abs.reshape(-1)
-        flat_kind = ev_kind.reshape(-1).to(I64)
-        ok = (flat_pos >= 0) & (flat_pos < gs) & (flat_kind != sw.EV_NONE)
-        dc = state.dev_counts
-        dc.index_add_(0, torch.where(ok, flat_pos * 6 + flat_kind, 0),
-                      ok.to(I32))
-        vrec = (ins_j >= 0).reshape(-1)
-        iok = (flat_pos >= 0) & (flat_pos < gs) & vrec
-        dc.index_add_(0, torch.where(iok, flat_pos * 6 + 5, 0), iok.to(I32))
+            # pileup add; rows past the genome are dropped
+            gs = self.genome_size
+            flat_pos = ev_abs.reshape(-1)
+            flat_kind = ev_kind.reshape(-1).to(I64)
+            ok = (flat_pos >= 0) & (flat_pos < gs) & (flat_kind != sw.EV_NONE)
+            dc = state.dev_counts
+            dc.index_add_(0, torch.where(ok, flat_pos * 6 + flat_kind, 0),
+                          ok.to(I32))
+            vrec = (ins_j >= 0).reshape(-1)
+            iok = (flat_pos >= 0) & (flat_pos < gs) & vrec
+            dc.index_add_(0, torch.where(iok, flat_pos * 6 + 5, 0),
+                          iok.to(I32))
 
-        # compact insertion records: [read, gpos, jstart, len]
-        T = ev_pos.shape[1]
-        order = torch.argsort((~vrec).to(torch.uint8),
-                              stable=True)[:self.ins_cap]
-        bb = torch.div(order, T, rounding_mode="floor")
-        tt = order % T
-        sel = vrec[order]
-        rec = torch.stack([
-            torch.where(sel, ridc[bb], -1),
-            torch.where(sel, ev_abs[bb, tt], -1),
-            torch.where(sel, ins_j[bb, tt].to(I64), -1),
-            torch.where(sel, ins_len[bb, tt].to(I64), 0)], dim=1).to(I32)
-        tail = torch.zeros((1, 4), dtype=I32, device=self.dev)
-        tail[0, 0] = vrec.sum().to(I32)
-        rec = torch.cat([rec, tail])
-        m_w = torch.where(valid_w, start_w + i_w + 1, 0).to(I32)
-        m = torch.zeros(B + 1, dtype=I32, device=self.dev)
-        m[torch.where(valid_w, ridc, B)] = m_w            # row B: dump
-        return m[:B], rec
+            # compact insertion records: [read, gpos, jstart, len]
+            T = ev_pos.shape[1]
+            order = torch.argsort((~vrec).to(torch.uint8),
+                                  stable=True)[:self.ins_cap]
+            bb = torch.div(order, T, rounding_mode="floor")
+            tt = order % T
+            sel = vrec[order]
+            rec = torch.stack([
+                torch.where(sel, ridc[bb], -1),
+                torch.where(sel, ev_abs[bb, tt], -1),
+                torch.where(sel, ins_j[bb, tt].to(I64), -1),
+                torch.where(sel, ins_len[bb, tt].to(I64), 0)], dim=1).to(I32)
+            tail = torch.zeros((1, 4), dtype=I32, device=self.dev)
+            tail[0, 0] = vrec.sum().to(I32)
+            rec = torch.cat([rec, tail])
+            m_w = torch.where(valid_w, start_w + i_w + 1, 0).to(I32)
+            m = torch.zeros(B + 1, dtype=I32, device=self.dev)
+            m[torch.where(valid_w, ridc, B)] = m_w            # row B: dump
+            return m[:B], rec
 
     def __call__(self, state: DeviceStateV1, *ends):
         B = self.B
@@ -316,8 +305,9 @@ class FusedMapperEngine(MapperEngine):
     Each shape key's step, with the concatenation of its outputs into
     the one block fetched, runs as a ``StepProgram``: on a card a CUDA
     graph captured at the key's second batch; ``graph=False`` runs the
-    eager step (the ``torch.profiler`` ranges of ``_ranged`` show only
-    there)."""
+    eager step.  The step's stages (``v1.seed_end``,
+    ``v1.compact_and_score``, ``v1.backtrack`` and within it
+    ``v1.traceback``) are ``utils.log.stage`` ranges."""
 
     def __init__(self, *args, device="cuda", ins_cap: int = INS_CAP,
                  graph: bool = True, **kwargs):

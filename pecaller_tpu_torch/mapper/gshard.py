@@ -43,6 +43,7 @@ from ..formats.index_files import SeedIndex
 from ..formats.sdx import SdxInfo
 from ..index.shard import ShardPlan, build_octile_shards, plan_shards
 from ..parallel.mesh import ShardComm, lockstep
+from ..utils.log import span
 from .device_map2 import (INS_CAP, SCATTER_PAD, TIE_CAP, DeviceState,
                           FusedMapperEngine2, FusedStep2, OctileDeviceIndex)
 from .engine import MapperEngine
@@ -103,10 +104,10 @@ class OctileShardedEngine(FusedMapperEngine2):
     segment and a graph a device a collective, captured at the key's
     second batch (``graph``).  ``graph=False`` runs the shards' steps
     eagerly under ``lockstep`` (a ``StepProgram`` that captures
-    nothing).  ``mesh_timing`` sums the host seconds of the input
-    copies and the replays (or the eager step's enqueue: dispatch) and
-    of waiting for the one copy back (fetch).  No batches are
-    grouped."""
+    nothing).  The host's spans are the v2 engine's: the input copies
+    and the replays (or the eager step's enqueue) in
+    ``engine.enqueue.dispatch``, the wait for the one copy back in
+    ``engine.resolve.wait``.  No batches are grouped."""
 
     def __init__(self, sdx: SdxInfo, genome: np.ndarray, index: SeedIndex,
                  mesh, plan: ShardPlan | None = None, shards=None,
@@ -125,7 +126,6 @@ class OctileShardedEngine(FusedMapperEngine2):
         self._programs = {}
         self.n_fallback = 0
         self.n_tiefix = 0
-        self.mesh_timing = {"dispatch_s": 0.0, "fetch_s": 0.0, "batches": 0}
         G = mesh.shape["genome"]
         if plan is None:
             plan = plan_shards(sdx, G)
@@ -144,27 +144,28 @@ class OctileShardedEngine(FusedMapperEngine2):
         ist = sdx.istarts.astype(np.int64)
         n_pad = max(sdx.n_contigs + 1, 70) + 1
         gctx = plan.gctx()
-        self.states = []
-        for g, dev in enumerate(mesh.flat):
-            b = int(plan.bases_seq[g])
-            sl = np.full(cs_max, ord("N"), np.uint8)
-            src = genome[b:b + cs_max]
-            sl[:len(src)] = src
-            cw, mw = pack_genome(sl)
-            bi = int(plan.bases_idx[g])
-            stp = np.full(n_pad, 2 ** 31 - 1, np.int64)
-            stp[:len(ist)] = ist - bi
-            clip = (-(2 ** 31) + 1, 2 ** 31 - 1)
-            self.states.append(DeviceState(
-                OctileDeviceIndex(shards[g], dev, t1=t1, rcap=rcap,
-                                  pad_entries=emax, pad_tb=shards[0].tb),
-                _words(cw, dev), _words(mw, dev),
-                torch.from_numpy(np.clip(ist - bi, *clip).astype(
-                    np.int32)).to(dev),
-                torch.from_numpy(np.clip(stp, *clip).astype(np.int32)).to(
-                    dev),
-                torch.zeros(cs_max * 6, dtype=torch.int32, device=dev),
-                torch.from_numpy(gctx[g]).to(dev)))
+        with span("engine.upload"):
+            self.states = []
+            for g, dev in enumerate(mesh.flat):
+                b = int(plan.bases_seq[g])
+                sl = np.full(cs_max, ord("N"), np.uint8)
+                src = genome[b:b + cs_max]
+                sl[:len(src)] = src
+                cw, mw = pack_genome(sl)
+                bi = int(plan.bases_idx[g])
+                stp = np.full(n_pad, 2 ** 31 - 1, np.int64)
+                stp[:len(ist)] = ist - bi
+                clip = (-(2 ** 31) + 1, 2 ** 31 - 1)
+                self.states.append(DeviceState(
+                    OctileDeviceIndex(shards[g], dev, t1=t1, rcap=rcap,
+                                      pad_entries=emax, pad_tb=shards[0].tb),
+                    _words(cw, dev), _words(mw, dev),
+                    torch.from_numpy(np.clip(ist - bi, *clip).astype(
+                        np.int32)).to(dev),
+                    torch.from_numpy(np.clip(stp, *clip).astype(np.int32)).to(
+                        dev),
+                    torch.zeros(cs_max * 6, dtype=torch.int32, device=dev),
+                    torch.from_numpy(gctx[g]).to(dev)))
         self.state = self.states[0]
 
     def _step_for(self, B, M, N, s_max, mr):

@@ -35,6 +35,7 @@ import torch
 
 from ..ops import sw_cuda
 from ..parallel.mesh import collective_operand, reduce_collective
+from ..utils.log import collect_stages
 
 
 class StepProgram:
@@ -65,7 +66,13 @@ class StepProgram:
 
     The kernel wrappers count their launches while the graph is
     captured, though a capture launches nothing: the program takes those
-    counts back out and adds them on every replay (``launches``)."""
+    counts back out and adds them on every replay (``launches``).
+
+    ``load(batches)`` and ``launch()`` are a call's two halves, the
+    copies in and the steps, for a caller that times them apart.  A
+    capture made while ``utils.log`` traces turns each ``log.stage`` of
+    the step into a pair of timed event nodes of the graph, read after
+    a replay by ``stage_ms()``; untraced, the graph has none."""
 
     def __init__(self, step, device, group: int = 1, graph: bool = True,
                  pool=None):
@@ -83,15 +90,30 @@ class StepProgram:
         self.capture_s = None        # the captured enqueue of the steps
         self.instantiate_s = None    # end of capture: graph instantiation
         self.pool_bytes = None       # device memory the graph's pool holds
+        self.stages = []             # (name, start, end) events, traced
         self._graph = None
 
     def __call__(self, batches) -> torch.Tensor:
+        self.load(batches)
+        return self.launch()
+
+    def load(self, batches) -> None:
+        """Copy ``group`` batches' inputs into the slots (on a card from
+        pinned host copies, on the device's current stream)."""
         if len(batches) != self.group:
             raise ValueError(f"the program runs {self.group} batches a "
                              f"call, got {len(batches)}")
-        self.calls += 1
         if self.device.type != "cuda":
             self._fill(batches)
+            return
+        with torch.cuda.device(self.device):
+            self._fill(batches)
+
+    def launch(self) -> torch.Tensor:
+        """Run the steps on the loaded slots: ``__call__`` less the
+        copies in."""
+        self.calls += 1
+        if self.device.type != "cuda":
             out = self._run()
             if not self.graph:
                 return out
@@ -99,7 +121,6 @@ class StepProgram:
                 self.out = torch.empty_like(out)
             return self.out.copy_(out)
         with torch.cuda.device(self.device):
-            self._fill(batches)
             if not self.graph or self.calls == 1:
                 return self._run()
             if self._graph is None:
@@ -111,6 +132,18 @@ class StepProgram:
     def replay(self) -> None:
         """Enqueue one replay of the captured graph."""
         self._graph.replay()
+
+    def stage_ms(self) -> dict:
+        """Device ms of each ``log.stage`` of the step in the last replay,
+        for one batch (a group's batches summed, over ``group``); waits
+        for the device.  Empty unless tracing was on at the capture."""
+        if not self.stages:
+            return {}
+        torch.cuda.synchronize(self.device)
+        out = {}
+        for name, a, b in self.stages:
+            out[name] = out.get(name, 0.0) + a.elapsed_time(b) / self.group
+        return out
 
     def _fill(self, batches) -> None:
         hosts = [[x if isinstance(x, torch.Tensor)
@@ -148,16 +181,18 @@ class StepProgram:
         gc.disable()
         t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph, pool=self.pool,
-                                  stream=torch.cuda.Stream(self.device)):
-                reserved = torch.cuda.memory_reserved(self.device)
-                out = self._run()
-                t1 = time.perf_counter()
+            with collect_stages() as stages:
+                with torch.cuda.graph(graph, pool=self.pool,
+                                      stream=torch.cuda.Stream(self.device)):
+                    reserved = torch.cuda.memory_reserved(self.device)
+                    out = self._run()
+                    t1 = time.perf_counter()
         finally:
             if gc_on:
                 gc.enable()
             self.launches = sw_cuda.launches_since(before)
         self.instantiate_s = time.perf_counter() - t1
+        self.stages = stages
         self.capture_s = t1 - t0
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self._graph, self.out = graph, out

@@ -26,7 +26,7 @@ from ..formats.index_files import load_index
 from ..formats.sdx import read_sdx, read_seq, find_chrom_mapper
 from ..index.nbr import load_nbr_index
 from ..index.quarter import load_quarter_index
-from ..utils.log import get_logger, stage_timer, event
+from ..utils.log import event, get_logger, span, spans, spans_since
 from .device_engine import DeviceMapperEngine
 from .device_map2 import FusedMapperEngine2
 from .device_pipeline import FusedMapperEngine
@@ -99,17 +99,19 @@ def device_route(genome_size: int, nbr_index=None, quarter_index=None):
     ("split", None) for the split engine (host seeds, SW and traceback
     on the device) at 2^30 bases and more; ("nbr", NbrIndex) and
     ("quarter", QuarterIndex) for the fused v2 engine on that index;
-    ("v1", None) for the fused v1 engine where both indexes refuse."""
+    ("v1", None) for the fused v1 engine where both indexes refuse.
+    The loaders' time is the span ``engine.seed_index``."""
     if genome_size >= SPLIT_GENOME:
         return "split", None
-    try:
-        return "nbr", nbr_index()
-    except ValueError:
-        pass
-    try:
-        return "quarter", quarter_index()
-    except ValueError:
-        return "v1", None
+    with span("engine.seed_index"):
+        try:
+            return "nbr", nbr_index()
+        except ValueError:
+            pass
+        try:
+            return "quarter", quarter_index()
+        except ValueError:
+            return "v1", None
 
 
 def default_shards(n_devices: int) -> int:
@@ -203,7 +205,11 @@ def run_mapper(cfg: MapperConfig, device=None) -> MapperEngine:
 
 def map_files(cfg: MapperConfig, eng: MapperEngine, sdx, genome):
     """The batch loop over ``cfg``'s fastq files with ``eng``, the .mfile
-    dumps, the checkpoints and the output writers."""
+    dumps, the checkpoints and the output writers.  Ends with one
+    ``spans`` event: the batches, and the count and ms a batch of each
+    ``engine.*`` span of this call, with the writers' seconds."""
+    before = spans()
+    n_batches = 0
     tot_pairs = 0
     order_base = 0
     cur_base = cfg.out_base
@@ -236,6 +242,7 @@ def map_files(cfg: MapperConfig, eng: MapperEngine, sdx, genome):
             depth = 2 * getattr(eng, "_group_k", 1) + 1
             pend = []
             for s1, l1, s2, l2, nos in batcher.batches():
+                n_batches += 1
                 pend.append(eng.map_batch_async(s1, l1, s2, l2,
                                                 read_nos=nos))
                 if len(pend) >= depth:
@@ -248,6 +255,7 @@ def map_files(cfg: MapperConfig, eng: MapperEngine, sdx, genome):
                 maps2_parts.append(m2)
         else:
             for s1, l1, s2, l2, nos in batcher.batches():
+                n_batches += 1
                 m1, m2, _ = eng.map_batch(s1, l1, s2, l2, read_nos=nos)
                 maps1_parts.append(m1)
                 maps2_parts.append(m2)
@@ -264,21 +272,25 @@ def map_files(cfg: MapperConfig, eng: MapperEngine, sdx, genome):
         event(_log, "file_done", file=f1, records=n_rec)
         if cfg.checkpoint:
             _save_ckpt(ckpt_path, eng, it + 1, tot_pairs, order_base)
-    mt = getattr(eng, "mesh_timing", None)
-    if mt and mt["batches"]:
-        # the mesh path's host cost: staging and enqueuing the shards,
-        # and waiting for their results, per batch
-        event(_log, "mesh_overhead", n_shards=eng._n_sh,
-              batches=mt["batches"],
-              dispatch_ms_per_batch=round(
-                  1e3 * mt["dispatch_s"] / mt["batches"], 2),
-              fetch_ms_per_batch=round(
-                  1e3 * mt["fetch_s"] / mt["batches"], 2))
-    with stage_timer(_log, "write_outputs"):
+    with span("run.write_outputs"):
         write_outputs(cfg, eng, sdx, genome, tot_pairs, out_base=cur_base)
+    _spans_event(eng, n_batches, spans_since(before))
     if cfg.checkpoint and os.path.exists(ckpt_path):
         os.remove(ckpt_path)
     return eng
+
+
+def _spans_event(eng, n: int, done: dict) -> None:
+    """The host's cost a batch over the ``n`` batches by ``engine.*``
+    span (on a mesh ``engine.enqueue.dispatch``: staging and enqueuing
+    the shards; ``engine.resolve.wait``: waiting for their results), as
+    ``name=[count, ms a batch]``.  Only the v2 engine and the genome
+    mesh open these spans; the other engines log the batches alone."""
+    per = {k: [c, round(1e3 * s / n, 3)] for k, (c, s) in done.items()
+           if n and k.startswith("engine.")}
+    event(_log, "spans", batches=n, n_shards=getattr(eng, "_n_sh", 1),
+          write_outputs_s=round(done.get("run.write_outputs",
+                                         (0, 0.0))[1], 4), **per)
 
 
 def _save_ckpt(path, eng, next_iter, tot_pairs, order_base):

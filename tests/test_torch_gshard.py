@@ -22,6 +22,7 @@ from pecaller_tpu_torch.index import shard as tsh
 from pecaller_tpu_torch.index.quarter import build_quarter_index
 from pecaller_tpu_torch.mapper.device_map2 import FusedMapperEngine2
 from pecaller_tpu_torch.mapper.gshard import OctileShardedEngine
+from pecaller_tpu_torch.utils.log import spans, spans_since
 from torch_util import cuda_device  # noqa: F401  (fixture)
 from torch_util import (CPU, PAIRED, batches, jax_genome_mesh, load_genome,
                         make_gshard_data, make_tie_genome_data,
@@ -76,14 +77,19 @@ def test_gshard_matches_oracle_and_jax(data, n_shards, graph):
     if not graph:
         engines.append(OctileShardedEngine(
             sdx, genome, index, port_genome_mesh(n_shards), **PAIRED))
+    before = spans()
     _run(engines, data)
+    done = spans_since(before)
     for ref in (host, jeng) + tuple(engines[3:]):
         _same_state(ref, port)
     assert port.ins_records and port.final_pileup().any()
     assert (port.n_fallback, port.n_tiefix) == (jeng.n_fallback,
                                                  jeng.n_tiefix)
     assert port.n_tiefix > 0
-    assert port.mesh_timing["batches"] == 2
+    # each of the port's engines dispatched and waited for two batches
+    n_port = len(engines) - 2
+    assert done["engine.enqueue.dispatch"][0] == 2 * n_port
+    assert done["engine.resolve.wait"][0] == 2 * n_port
     # one program a shape key, one call a batch
     assert sum(p.calls for p in port.programs) == 2
     assert all(p.graph == graph for p in port.programs)

@@ -48,6 +48,7 @@ from pecaller_tpu_torch.mapper import device_map2 as tdm
 from pecaller_tpu_torch.mapper.program import MeshProgram
 from pecaller_tpu_torch.mapper.runner import MapperConfig, run_mapper
 from pecaller_tpu_torch.parallel import mesh as tmesh
+from pecaller_tpu_torch.utils.log import spans, spans_since
 from test_screen import _fuzz_counts, _mk_sdx
 from torch_util import cuda_device  # noqa: F401  (fixture)
 from torch_util import CASES, CPU, StepCase, make_fused2_data
@@ -124,7 +125,7 @@ def _artifacts(base, d):
 def test_run_mapper_mesh_matches_single(data, tmp_path):
     """run_mapper with mesh_shards=4 (four CPU shards) writes the
     single-device run's artifacts byte for byte."""
-    outs, engs = {}, {}
+    outs, engs, done = {}, {}, {}
     for shards in (1, 4):
         d = tmp_path / f"sh{shards}"
         d.mkdir()
@@ -136,11 +137,17 @@ def test_run_mapper_mesh_matches_single(data, tmp_path):
                            files2=[str(d / "r2.fastq")], max_dist=500,
                            min_dist=0, batch_size=600, device=True,
                            mesh_shards=shards, nthreads=2)
+        before = spans()
         engs[shards] = run_mapper(cfg, device=[CPU] * 4)
+        done[shards] = spans_since(before)
         outs[shards] = _artifacts(str(d / "out"), d)
     assert engs[4]._n_sh == 4 and engs[1]._n_sh == 1
     assert len(engs[4].states) == 4
-    assert engs[4].mesh_timing["batches"] == 2
+    # the mesh path's two batches, each staged and dispatched over the
+    # shards and waited for once
+    assert done[4]["engine.enqueue.dispatch"][0] == 2
+    assert done[4]["engine.resolve.wait"][0] == 2
+    assert "engine.enqueue.dispatch" not in done[1]
     assert outs[1][".summary.txt"].count(b"\n") > 5
     assert outs[4] == outs[1]
 
@@ -173,10 +180,13 @@ def test_run_mapper_default_mesh_divides_every_batch(data, tmp_path,
                               "500", "0", "n", "0.9", "3", "2000000000",
                               "--batch-size", "600"])
         assert cfg.device and cfg.mesh_shards is None
+        before = spans()
         eng = run_mapper(cfg, device=devs)
+        done = spans_since(before)
         outs[len(devs)] = _artifacts(str(d / "out"), d)
     assert eng._n_sh == n_sh and len(eng.states) == n_sh
-    assert eng.mesh_timing["batches"] == 2
+    assert done["engine.enqueue.dispatch"][0] == 2
+    assert done["engine.resolve.wait"][0] == 2
     shrunk = [(kw["mesh_shards"], kw["devices"]) for kind, kw in events
               if kind == "engine" and "mesh_shards" in kw]
     assert shrunk == ([] if n_sh == n_dev else [(n_sh, n_dev)])
