@@ -22,7 +22,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      group size (threads per lane) that takes the width, timed per group
      size at the main-path shape, and on its edge lanes (k1_edge_lanes,
      k2_edge_lanes, k3_edge_lanes) at 100 bp and 250 bp widths (M 112
-     and 256), B 1 and 1001
+     and 256), B 1 and 1001; the seed stage's chain kernels
+     (chain_check) against their plain versions at the v2 main key,
+     timed, on a repeat-free and a dense mix
   4. main path (v2): an E. coli-scale genome (4.6 Mb, seed 2024) and 100k
      100 bp pairs, made once under .smoke/; `pemapper` with the
      reference's own argv (no device flag: the device route on cuda:0,
@@ -741,6 +743,83 @@ def kernel_check():
         **{k: {kk: (round(vv, 4) if isinstance(vv, float) else vv)
                for kk, vv in v.items()} for k, v in res.items()})
     return res
+
+
+def chain_inputs_main(rng, U=65536, S=8, dense=False):
+    """The seed stage's chain inputs at the v2 main key (32,768 pairs:
+    65,536 ends, S 8 for 100 bp reads) on a repeat-free genome: 39% of
+    the units padding (no candidate), the rest one read each whose true
+    chain gives one anchor in each of its 7 probes of one orientation,
+    with a stray anchor in half the probes (about one slot in 16 valid);
+    ``dense`` fills every slot (16 candidates a probe) on a few
+    diagonals, the worst case."""
+    import numpy as np
+    SEG = 16
+    n_segs = np.full(U, 7, np.int32)
+    offs = np.zeros((U, S), np.int32)
+    offs[:, :7] = np.array([0, 16, 32, 48, 64, 80, 84], np.int32)
+    pos = np.full((U, 2, S, SEG), 2 ** 30, np.int32)
+    live = rng.random(U) >= 0.39
+    g = rng.integers(0, 4_600_000, U)
+    o = rng.integers(0, 2, U)
+    if dense:
+        d = g[:, None, None, None] + 13 * rng.integers(0, 8, (U, 2, S, SEG))
+        pos[live] = (d + offs[:, None, :, None])[live]
+    else:
+        u = np.nonzero(live)[0]
+        for li in range(7):
+            pos[u, o[u], li, 0] = g[u] + offs[u, li]
+        stray = (rng.random((U, 2, S)) < 0.5) & live[:, None, None]
+        pos[..., 1][stray] = rng.integers(0, 4_600_000, stray.sum())
+    seg_tot = (pos < 2 ** 30).sum(-1).astype(np.int64)
+    mm0 = np.full(U, 4, np.int32)
+    skip = np.zeros(U, np.int32)
+    return dict(pos=pos, offsets=offs, n_segs=n_segs, seg_tot=seg_tot,
+                mm0=mm0, skip=skip)
+
+
+def chain_check():
+    """The seed stage's chain kernels (csrc/chain.cu) against their plain
+    versions at the v2 main key, bitwise, on the repeat-free mix and the
+    dense one: each kernel's time alone (CUDA events), its byte bound
+    and the plain version's time."""
+    import numpy as np
+    import torch
+    from pecaller_tpu_torch.ops import chain
+    dev = torch.device("cuda", 0)
+    out = {}
+    for mix in ("sparse", "dense"):
+        x = {k: torch.from_numpy(v).to(dev) for k, v in chain_inputs_main(
+            np.random.default_rng(7), dense=mix == "dense").items()}
+        a = (x["pos"], x["offsets"], x["n_segs"])
+        kv = chain.chain_votes(*a)
+        pv = chain.chain_votes_plain(*a)
+        b = (x["pos"], kv[0], kv[1], x["seg_tot"], x["offsets"],
+             x["n_segs"], x["mm0"], x["skip"])
+        ks = chain.chain_select(*b)
+        ps = chain.chain_select_plain(*b)
+        torch.cuda.synchronize()
+        err = max(_max_abs_err(kv, pv), _max_abs_err(ks, ps))
+        if err:
+            raise AssertionError(f"chain kernels != plain on the {mix} "
+                                 f"mix: {err}")
+
+        def nbytes(*xs):
+            return sum(t.numel() * t.element_size() for t in xs)
+        U = x["pos"].shape[0]
+        for name, fn, plain, ins, outs in (
+                ("chain_votes", lambda: chain.chain_votes(*a),
+                 lambda: chain.chain_votes_plain(*a), a, kv),
+                ("chain_select", lambda: chain.chain_select(*b),
+                 lambda: chain.chain_select_plain(*b), b, ks)):
+            out[f"{name}.{mix}"] = dict(
+                ms=_timed(fn, 20), plain_ms=_timed(plain, 3),
+                bound_ms=1e3 * (nbytes(*ins) + nbytes(*outs)) / HBM_BPS,
+                units=U, live_anchors=int((x["pos"] < 2 ** 30).sum()))
+    say("chain_check", bitwise=True,
+        **{k: {kk: (round(vv, 4) if isinstance(vv, float) else vv)
+               for kk, vv in v.items()} for k, v in out.items()})
+    return out
 
 
 def k1_groups(main_x):
@@ -3286,6 +3365,7 @@ def main():
         return
     build(sass=args.kernels)
     kres = kernel_check()
+    chain_check()
     if args.kernels:
         launches = dict.fromkeys(REPLACES)
     elif args.scaleout:

@@ -39,6 +39,7 @@ from ..index.nbr import NBR_HI_BITS, NbrIndex
 from ..index.quarter import MARKER, OCT_SUB_BITS, SUB_BITS, QuarterIndex
 from ..native.build import ptr as _ptr
 from ..ops import sw2
+from ..ops.chain import HIT_CAP, POS_PAD, chain_select, chain_votes
 from ..ops.encode import IDEPTH
 from ..ops.sw_cuda import sw_align_x, sw_traceback_rows
 from ..utils.log import span, stage
@@ -51,8 +52,6 @@ from .program import StepProgram
 from .seeds import revcomp_batch, segment_offsets
 
 PAD_SCORE = -36
-POS_PAD = 2 ** 30
-HIT_CAP = 16
 SEG_CAP = 16            # candidate positions per probe before spill/fallback
 INS_CAP = 2048
 TIE_CAP = 2048          # walk-tie record rows per batch (overflow -> fb)
@@ -628,7 +627,6 @@ class FusedStep2(DecideLayer):
         self.U = 2 * B if paired else B
         self.S = s_max
         self.ins_cap, self.tie_cap = ins_cap, tie_cap
-        self.F = 2 * s_max * SEG_CAP
         # SW slots per batch: 1.5 per unit; units past it fall back
         self.H_CAP = ((int(1.5 * self.U) + 255) // 256) * 256
         # units the quarter probe's caps (spill budget, rcap) sent to the
@@ -951,7 +949,8 @@ class FusedStep2(DecideLayer):
                            offsets, n_segs, min_match0, skip, shard=None):
         """Co-linear chaining, min_match ratchet, per-unit diagonal dedup
         and CAP selection (pemapper.c:2188-2289 semantics); a generator
-        (``run_alone`` runs it unsharded).
+        (``run_alone`` runs it unsharded).  Two kernels on a card
+        (``ops/chain.py``), their plain versions on the CPU.
 
         ``shard`` (genome-sharded mode): the shard's (own_lo, own_hi) in
         local index coordinates.  ``seg_tot`` is then the global
@@ -960,77 +959,16 @@ class FusedStep2(DecideLayer):
         the shards so that every shard ratchets on the globally best
         chain, and only owned candidates (window start in this shard's
         interval) survive selection."""
-        U, S, F, CAP = self.U, self.S, self.F, HIT_CAP
-        seg_cap = SEG_CAP
-        seg_valid = self._ar(S)[None, :] < n_segs[:, None]
-        max_off = max(2, IDEPTH - 4)
-        diag = pos - offsets[:, None, :, None]
-        anchor_valid = pos < POS_PAD
-        T = torch.ones(pos.shape, dtype=I32, device=self.dev)
-        seg_in_read = self._ar(S)[None, :] <= (n_segs - 1)[:, None]
-        for dd in range(1, S):
-            a = diag[:, :, :S - dd, :]
-            bseg = diag[:, :, dd:, :]
-            near = (a[..., :, None] - bseg[..., None, :]).abs() < max_off
-            near = near & anchor_valid[:, :, dd:][..., None, :]
-            found = near.any(-1) & seg_in_read[:, None, dd:, None]
-            T[:, :, :S - dd, :] += found.to(I32)
-        T = torch.where(anchor_valid, T, 0)
-
-        # min_match ratchet (pemapper.c:2251-2254 + min_spots wipe)
-        max_depth = n_segs - 1
-        min_spots = torch.where(seg_valid[:, None, :], seg_tot,
-                                1 << 30).amin(-1)                 # (U, 2)
-        wipe = min_spots > 200
-        Tmax = T.amax(-1)
+        T, Tmax = chain_votes(pos, offsets, n_segs)
         if shard is not None:
             Tmax = yield from self.comm.pmax(Tmax)
-        cur = min_match0.to(I32)
-        processed = torch.zeros(pos.shape[:3], dtype=torch.bool,
-                                device=self.dev)
-        for o in range(2):
-            o_ok = ~wipe[:, o] & (skip == 0)
-            for li in range(S):
-                active = o_ok & (li <= 1 + max_depth - cur)
-                processed[:, o, li] = active
-                cur = torch.maximum(cur, torch.where(active, Tmax[:, o, li],
-                                                     0))
-        accepted = (processed[..., None] & (T == cur[:, None, None, None])
-                    & anchor_valid)
-        accepted = accepted & ~wipe[:, 1][:, None, None, None]
-        if shard is not None:
-            # shard 0's own_lo is -2^30: the reference's genome-start
-            # clamp (diag < 0 -> spot 0) stays owned there
-            accepted = accepted & (diag >= shard[0]) & (diag < shard[1])
-
-        # per-unit first-occurrence diagonal dedup, chunked over q
-        acc = accepted.reshape(U, F)
-        dg = diag.reshape(U, F)
-        posf = pos.reshape(U, F)
-        QC = 64
-        dup_parts = []
-        for q0 in range(0, F, QC):
-            q1 = min(q0 + QC, F)
-            tri = self._ar(F)[:, None] < self._ar(q1 - q0)[None, :] + q0
-            dup_parts.append(((dg[:, :, None] == dg[:, None, q0:q1])
-                              & acc[:, :, None] & tri[None]).any(dim=1))
-        keep = acc & ~torch.cat(dup_parts, dim=1)
-        n_keep = keep.sum(dim=1)
-
-        rank = torch.cumsum(keep.to(I64), 1) - 1
-        sel = keep[:, :, None] & (rank[:, :, None] ==
-                                  self._ar(CAP)[None, None, :])
-        orient_f = torch.div(self._ar(F), S * seg_cap,
-                             rounding_mode="floor")[None, :, None]
-        off_f = offsets.repeat_interleave(seg_cap, dim=1).repeat(1, 2)
-        hits = torch.where(sel, posf[:, :, None], 0).sum(1).to(I32)
-        hits_off = torch.where(sel, off_f[:, :, None], 0).sum(1).to(I32)
-        orient = torch.where(sel, orient_f, 0).sum(1).to(torch.int8)
-        tot = n_keep.clamp(max=CAP).to(I32)
+        hits, hits_off, orient, tot, n_keep = chain_select(
+            pos, T, Tmax, seg_tot, offsets, n_segs, min_match0, skip,
+            shard=shard)
         if shard is not None:
             n_keep = yield from self.comm.psum(n_keep)
         fallback = ((seg_over.any(dim=2).any(dim=1) | heavy_over
-                     | (n_keep > CAP)) & (skip == 0))
+                     | (n_keep > HIT_CAP)) & (skip == 0))
         return hits, hits_off, orient, tot, fallback
 
     # ---- the step --------------------------------------------------------

@@ -1,7 +1,9 @@
 """Wrappers of the hand-written CUDA kernels K1 (sw_align_x), K2
 (sw_tb_rows) and K3 (sw_align); counterparts of
 ``pecaller_tpu/ops/sw_pallas2.py`` (K1, K2) and
-``pecaller_tpu/ops/sw_pallas.py`` (K3).
+``pecaller_tpu/ops/sw_pallas.py`` (K3).  The same build and launch count
+serve the seed stage's chain kernels (``csrc/chain.cu``, wrapped by
+``ops/chain.py``).
 
 A CPU tensor goes to the plain PyTorch version (``ops/sw2.py`` for K1
 and K2, ``ops/sw.py`` for K3).  A CUDA tensor goes to the kernel, or
@@ -30,14 +32,15 @@ from . import sw, sw2
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
-_SOURCES = ("sw_align_x.cu", "sw_tb_rows.cu", "sw_align.cu")
+_SOURCES = ("sw_align_x.cu", "sw_tb_rows.cu", "sw_align.cu", "chain.cu")
 _HEADERS = ("sw_kernels.h", "sw_group.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_CSRC)), "build",
                          "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"sw_align_x": 0, "sw_tb_rows": 0, "sw_align": 0}
+LAUNCHES = {"sw_align_x": 0, "sw_tb_rows": 0, "sw_align": 0,
+            "chain_votes": 0, "chain_select": 0}
 BUILD_INFO = {}          # nvcc seconds and ptxas report of the last build
 _LIB = None
 
@@ -128,6 +131,10 @@ def load_kernels() -> ctypes.CDLL:
     lib.sw_tb_rows_launch.restype = ci
     lib.sw_align_launch.argtypes = [vp] * 7 + [ci] * 6 + [vp]
     lib.sw_align_launch.restype = ci
+    lib.chain_votes_launch.argtypes = [vp] * 5 + [ci] * 2 + [vp]
+    lib.chain_votes_launch.restype = ci
+    lib.chain_select_launch.argtypes = [vp] * 15 + [ci] * 2 + [vp]
+    lib.chain_select_launch.restype = ci
     _LIB = lib
     return lib
 

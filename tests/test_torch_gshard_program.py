@@ -186,7 +186,8 @@ def test_gshard_graph_on_the_card(data, cuda_device):
     prog.replay()
     assert sw_cuda.LAUNCHES == k0                 # a bare replay counts none
     assert prog.launches == {"sw_align_x": 2, "sw_tb_rows": 2,
-                             "sw_align": 0}
+                             "sw_align": 0, "chain_votes": 2,
+                             "chain_select": 2}
 
 
 @pytest.mark.cuda

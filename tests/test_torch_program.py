@@ -59,11 +59,13 @@ def test_launch_accounting_with_a_fake_step(launches):
     before = dict(launches)
     _fake_step(torch.arange(4), torch.ones(2))
     moved = sw_cuda.launches_since(before)
-    assert moved == {"sw_align_x": 2, "sw_tb_rows": 1, "sw_align": 0}
+    assert moved == {"sw_align_x": 2, "sw_tb_rows": 1, "sw_align": 0,
+                     "chain_votes": 0, "chain_select": 0}
     assert launches == before
     for _ in range(3):
         sw_cuda.count_replay(moved)
-    assert launches == {"sw_align_x": 6, "sw_tb_rows": 3, "sw_align": 5}
+    assert launches == {"sw_align_x": 6, "sw_tb_rows": 3, "sw_align": 5,
+                        "chain_votes": 0, "chain_select": 0}
 
 
 def test_program_slots_on_the_cpu(launches):
@@ -84,7 +86,7 @@ def test_program_slots_on_the_cpu(launches):
     assert torch.equal(out2, want1.flip(0))
     assert not torch.equal(out1, first)       # overwritten by call 2
     assert launches == {"sw_align_x": 2 * 2 * 3, "sw_tb_rows": 2 * 3,
-                        "sw_align": 0}
+                        "sw_align": 0, "chain_votes": 0, "chain_select": 0}
     assert prog.launches is None and prog.capture_s is None
     assert capture_stats([prog])["graphs"] == 0
 
@@ -337,3 +339,6 @@ def test_graph_equals_eager_on_the_card(data, cuda_device, engine, batch,
             assert np.array_equal(x, y)
     assert counts[True] == counts[False]
     assert sum(counts[True].values()) > 0
+    if engine not in ("v1", "split"):          # the v2 step's seed stage
+        assert (counts[True]["chain_votes"] == counts[True]["chain_select"]
+                == counts[True]["sw_align_x"])
